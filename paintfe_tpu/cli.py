@@ -8,7 +8,7 @@ canvas-op replay -> flatten -> encode (cli.rs:222-303), format inference
 (cli.rs:354-390), collision-safe `_out` suffix (cli.rs:399-427), exit code
 0 all-ok / 1 any-failure with keep-going semantics (cli.rs:155-216).
 
-TPU addition over the reference: `--shard` distributes the batch loop over
+Addition over the reference: `--shard` distributes the batch loop over
 the device mesh via paintfe_tpu.parallel (the reference loops serially).
 """
 
@@ -40,7 +40,7 @@ _INPUT_ERRORS = (codecs.CodecError, pfe.PfeError, PdnError, RawError,
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="paintfe-tpu",
-        description="PaintFE-compatible headless batch processor (TPU-native)",
+        description="PaintFE-compatible headless batch processor (JAX)",
     )
     p.add_argument("-i", "--input", nargs="+", action="extend", required=True,
                    help="input file(s); glob patterns accepted; the flag "
@@ -225,7 +225,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
 
     # Persistent XLA compilation cache: a fresh process re-jits everything
-    # otherwise (measured: 37 s CPU / >120 s TPU for the first batch file).
+    # otherwise.
     # The reference CLI is a native binary with zero warmup (cli.rs:105-216);
     # this gets cold invocations to executable-deserialization cost instead.
     from paintfe_tpu.utils.compile_cache import cache_report, enable_persistent_cache

@@ -24,7 +24,7 @@ import enum
 import jax
 import jax.numpy as jnp
 
-from paintfe_tpu.utils.quant import exact_div, exact_div_hw, trunc_u8
+from paintfe_tpu.utils.quant import exact_div, trunc_u8
 
 
 class BlendMode(enum.IntEnum):
@@ -154,7 +154,7 @@ def _porter_duff(mixer, base_f, top_rgb, top_a):
     inv = 1.0 - top_a
     out_a = top_a + base_a * inv
     safe_a = jnp.where(out_a == 0.0, 1.0, out_a)
-    out_rgb = exact_div_hw(rgb * top_a + base_rgb * base_a * inv, safe_a)
+    out_rgb = (rgb * top_a + base_rgb * base_a * inv) / safe_a
     out = jnp.concatenate([out_rgb, out_a], axis=-1)
     out = jnp.where(out_a == 0.0, 0.0, out)
     return trunc_u8(out * 255.0)
@@ -165,9 +165,8 @@ def _xor_branch(base_f, top_rgb, top_a):
     base_a = base_f[..., 3:4]
     xor_a = base_a * (1.0 - top_a) + top_a * (1.0 - base_a)
     safe_a = jnp.where(xor_a == 0.0, 1.0, xor_a)
-    xor_rgb = exact_div_hw(
-        base_rgb * base_a * (1.0 - top_a) + top_rgb * top_a * (1.0 - base_a), safe_a
-    )
+    xor_rgb = (base_rgb * base_a * (1.0 - top_a)
+               + top_rgb * top_a * (1.0 - base_a)) / safe_a
     out = jnp.concatenate([xor_rgb, xor_a], axis=-1)
     out = jnp.where(xor_a == 0.0, 0.0, out)
     return trunc_u8(out * 255.0)

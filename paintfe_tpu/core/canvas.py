@@ -3,8 +3,8 @@
 Behavioral contract: `CanvasState` / `Layer` (src/canvas/canvas_state.rs:9-139,
 src/canvas/layers.rs:366-421) minus the GUI caches.  This is deliberately a
 thin Python object graph over dense device arrays: the reference's 64x64 COW
-tile store exists to make clones/undo cheap on a CPU heap, but on TPU the
-whole image lives in HBM as one dense array and XLA fuses whole-image ops, so
+tile store exists to make clones/undo cheap on a CPU heap, but on the
+accelerator the whole image lives in device memory as one dense array and XLA fuses whole-image ops, so
 "transparent tiles are free" is replaced by "dense arrays are fused".
 Sparse-canvas economics come back later via dirty-rect windows
 (`lax.dynamic_update_slice`) rather than an Option<Arc<chunk>> store.

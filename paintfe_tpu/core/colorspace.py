@@ -11,7 +11,7 @@ from __future__ import annotations
 import jax.numpy as jnp
 import numpy as np
 
-from paintfe_tpu.utils.quant import exact_div, exact_div_hw
+from paintfe_tpu.utils.quant import exact_div
 
 _EPS = 1e-6
 
@@ -19,17 +19,16 @@ _EPS = 1e-6
 def rgb_to_hsl(r, g, b, xp=jnp):
     """RGB in [0,1] -> (h, s, l) each in [0,1].
 
-    `xp` selects the array module: the jnp path guards its divides against
-    XLA's reciprocal rewrite and the TPU VPU's 1-ulp divide (exact_div*);
-    numpy's divide is already IEEE-correct, so the host path (used by
+    `xp` selects the array module: the jnp path guards its constant
+    divides against XLA's reciprocal rewrite (exact_div); numpy never
+    rewrites them, so the host path (used by
     selection.select_color_range) is a plain `/` with the SAME epsilon
     branches and R->G->B tie-break order — one implementation for the
     parity minefield instead of two drifting copies."""
     if xp is jnp:
-        div_c, div_hw = exact_div, exact_div_hw
+        div_c = exact_div
     else:
         div_c = lambda x, c: x / np.float32(c)  # noqa: E731
-        div_hw = lambda x, c: x / c  # noqa: E731
     mx = xp.maximum(xp.maximum(r, g), b)
     mn = xp.minimum(xp.minimum(r, g), b)
     l = (mx + mn) / 2.0
@@ -37,15 +36,15 @@ def rgb_to_hsl(r, g, b, xp=jnp):
     gray = xp.abs(d) < _EPS
     safe_d = xp.where(gray, 1.0, d)
 
-    s_hi = div_hw(d, xp.where(gray, 1.0, 2.0 - mx - mn))
-    s_lo = div_hw(d, xp.where(gray, 1.0, mx + mn))
+    s_hi = d / xp.where(gray, 1.0, 2.0 - mx - mn)
+    s_lo = d / xp.where(gray, 1.0, mx + mn)
     s = xp.where(gray, 0.0, xp.where(l > 0.5, s_hi, s_lo))
 
     # Hue: branch order matches the reference (R first, then G, else B).
-    hr_raw = div_hw(g - b, safe_d)
+    hr_raw = (g - b) / safe_d
     hr = div_c(xp.where(hr_raw < 0.0, hr_raw + 6.0, hr_raw), 6.0)
-    hg = div_c(div_hw(b - r, safe_d) + 2.0, 6.0)
-    hb = div_c(div_hw(r - g, safe_d) + 4.0, 6.0)
+    hg = div_c((b - r) / safe_d + 2.0, 6.0)
+    hb = div_c((r - g) / safe_d + 4.0, 6.0)
     h = xp.where(
         xp.abs(mx - r) < _EPS, hr, xp.where(xp.abs(mx - g) < _EPS, hg, hb)
     )

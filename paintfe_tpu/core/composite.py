@@ -6,11 +6,12 @@ transparent background with `blend_pixel_static`; live masks are
 alpha-encoded *conceal* values that scale the layer alpha with u32 integer
 math; adjustment layers transform the accumulated pixel in-stream.
 
-TPU-first shape: the stack is one dense [L, H, W, 4] u8 array; the fold is a
+Device shape: the stack is one dense [L, H, W, 4] u8 array; the fold is a
 `lax.scan` over L whose body dispatches the blend mode with `lax.switch`.
 XLA fuses the whole thing into a single elementwise kernel over the image —
 the reference's per-chunk rayon loop and COW-tile bookkeeping have no
-equivalent here because a dense fused fold is the faster layout on TPU.
+equivalent here because a dense fused fold is the faster layout on an
+accelerator.
 """
 
 from __future__ import annotations

@@ -153,8 +153,8 @@ def composite_dirty_rect(canvas, cache: DeviceLayerCache, prev, rect):
 
     The reference's interactive loop recomposites and reads back only the
     dirty rect (canvas_state.rs:1511-1531 mark_dirty, renderer.rs:588
-    dirty readback); the TPU analogue is a windowed composite +
-    lax.dynamic_update_slice, leaving everything in HBM.  Window sizes are
+    dirty readback); the analogue here is a windowed composite +
+    lax.dynamic_update_slice, leaving everything in device memory.  Window sizes are
     bucketed to 64 px so brush-sized edits reuse one compiled program.
     Every pointwise stage of the full composite (conceal, preview,
     adjustment + tile mask) applies identically on the window, so the

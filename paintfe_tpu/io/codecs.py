@@ -1,4 +1,4 @@
-"""Image codecs (host-side, PIL-backed).
+"""Image codecs (host-side).
 
 Behavioral contract: src/io.rs — read PNG/JPEG/WebP/BMP/TIFF/TGA/GIF/APNG/ICO
 (io.rs:36-80, 693-1100), write PNG/JPEG/WebP(lossless default)/BMP/TGA/ICO/
@@ -6,6 +6,12 @@ TIFF/GIF/APNG (encode_and_write io.rs:1723+), animated decode/encode with
 "each visible layer = one frame" semantics and fps -> centisecond GIF delay
 max(round(100/fps), 1) (io.rs:2774-2885).  RAW camera formats (rawloader in
 the reference) are not available in this environment and raise a clear error.
+
+8-bit RGB/RGBA non-interlaced PNG, the batch pipeline's own format, goes
+through the repo's zlib + numpy codec (io/png.py), and BMP through the
+writer below.  Pillow is imported only for the other formats (JPEG, WebP,
+GIF, TGA, ICO, TIFF, palette/grayscale/interlaced PNG, animations); when it
+is missing those raise CodecError naming it.
 """
 
 from __future__ import annotations
@@ -14,7 +20,8 @@ import pathlib
 from typing import List, Optional, Tuple
 
 import numpy as np
-from PIL import Image
+
+from paintfe_tpu.io import png
 
 # the reference's full recognized-RAW list (io.rs RAW_EXTENSIONS)
 RAW_EXTS = {
@@ -25,6 +32,15 @@ RAW_EXTS = {
 
 class CodecError(Exception):
     pass
+
+
+def _pillow(what: str):
+    """Pillow's Image module, or CodecError saying `what` needs it."""
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise CodecError(f"{what} needs Pillow, which is not installed") from e
+    return Image
 
 
 def format_extension(fmt: str) -> str:
@@ -56,6 +72,14 @@ def load_image(path) -> np.ndarray:
             "natively)"
         )
     try:
+        with open(path, "rb") as fh:
+            blob = fh.read()
+        if png.is_plain(blob) and png.header(blob)[2] == 8:
+            return png.decode(blob)
+    except Exception as e:
+        raise CodecError(f"failed to decode '{path}': {e}")
+    Image = _pillow(f"decoding '{path}'")
+    try:
         img = Image.open(path)
         img.load()
     except Exception as e:
@@ -69,6 +93,7 @@ def load_frames(path) -> Tuple[List[np.ndarray], List[int]]:
     Delays clamp below at 10 ms like the reference's MIN_FRAME_DELAY_MS
     (io.rs:2293, :2380 — zero/missing GCE delays are extremely common in
     real GIFs); decode failures surface as CodecError like load_image."""
+    Image = _pillow("decoding an animation")
     try:
         img = Image.open(path)
         frames = []
@@ -90,7 +115,7 @@ def load_frames(path) -> Tuple[List[np.ndarray], List[int]]:
 
 def detect_animation(path) -> bool:
     try:
-        img = Image.open(path)
+        img = _pillow("animation detection").open(path)
         return getattr(img, "n_frames", 1) > 1
     except Exception:
         return False
@@ -104,21 +129,25 @@ def save_image(img: np.ndarray, path, fmt: Optional[str] = None, quality: int = 
     if fmt is None:
         fmt = pathlib.Path(path).suffix.lower().lstrip(".") or "png"
         fmt = {"jpg": "jpeg", "tif": "tiff"}.get(fmt, fmt)
-    pil = Image.fromarray(img, "RGBA")
     try:
         if fmt == "png":
-            pil.save(path, format="PNG")
-        elif fmt == "jpeg":
+            png.write(path, img)
+            return
+        if fmt == "bmp":
+            # the reference encodes Rgba8 BMPs (alpha preserved); Pillow's
+            # writer drops alpha, so write the 32bpp V4 header ourselves
+            _write_bmp_rgba(img, path)
+            return
+        if fmt not in ("jpeg", "webp", "tga", "ico", "tiff", "gif"):
+            raise CodecError(f"unsupported save format '{fmt}'")
+        pil = _pillow(f"writing {fmt}").fromarray(img, "RGBA")
+        if fmt == "jpeg":
             pil.convert("RGB").save(path, format="JPEG", quality=int(quality))
         elif fmt == "webp":
             if webp_lossless:
                 pil.save(path, format="WEBP", lossless=True)
             else:
                 pil.save(path, format="WEBP", quality=int(quality))
-        elif fmt == "bmp":
-            # the reference encodes Rgba8 BMPs (alpha preserved); PIL's
-            # writer drops alpha, so write the 32bpp V4 header ourselves
-            _write_bmp_rgba(img, path)
         elif fmt == "tga":
             pil.save(path, format="TGA")
         elif fmt == "ico":
@@ -141,14 +170,25 @@ def save_image(img: np.ndarray, path, fmt: Optional[str] = None, quality: int = 
             # RGB-only palette with no transparency either — transparent
             # pixels flatten to their stored RGB in both implementations.
             # Palette = NeuQuant like encode_static_gif (io.rs:2743-2767).
-            _gif_p_frame(np.asarray(pil.convert("RGBA"), np.uint8),
-                         256).save(path, format="GIF")
-        else:
-            raise CodecError(f"unsupported save format '{fmt}'")
+            _gif_p_frame(img, 256).save(path, format="GIF")
     except CodecError:
         raise
     except Exception as e:
         raise CodecError(f"failed to encode '{path}': {e}")
+
+
+def encode_job(img, output_path, fmt, quality, webp_lossless,
+               tiff_compression):
+    """save_image as a pool job -> (ok, message).  Module-level and
+    JAX-free: the sharded batch runner's spawn workers unpickle it by
+    importing only this module and io/png.py."""
+    try:
+        save_image(img, output_path, fmt, quality=quality,
+                   webp_lossless=webp_lossless,
+                   tiff_compression=tiff_compression)
+        return True, f"  -> {output_path}"
+    except CodecError as e:
+        return False, f"  error: {e}"
 
 
 def _gif_p_frame(rgba: np.ndarray, colors: int) -> "Image.Image":
@@ -159,7 +199,7 @@ def _gif_p_frame(rgba: np.ndarray, colors: int) -> "Image.Image":
 
     h, w = rgba.shape[0], rgba.shape[1]
     palette, indices = quantize_rgba(rgba, colors)
-    pim = Image.fromarray(indices.reshape(h, w), "P")
+    pim = _pillow("GIF encoding").fromarray(indices.reshape(h, w), "P")
     pim.putpalette(palette.reshape(-1).tobytes())
     return pim
 
@@ -196,6 +236,7 @@ def save_animation(frames: List[np.ndarray], path, fmt: str = "gif",
     h, w = frames[0].shape[0], frames[0].shape[1]
     if any(fr.shape[0] != h or fr.shape[1] != w for fr in frames):
         raise CodecError("all animation frames must have the same dimensions")
+    Image = _pillow("animation encoding")
     pils = [Image.fromarray(fr, "RGBA") for fr in frames]
     path = str(path)
     try:

@@ -25,6 +25,7 @@ import numpy as np
 
 from paintfe_tpu.core.canvas import Canvas
 from paintfe_tpu.core.deep import PixelFormat, f16_bits_to_f32
+from paintfe_tpu.io import png
 
 f32 = np.float32
 
@@ -216,120 +217,23 @@ def prepared_to_rgba8(prep: PreparedExport) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 
-def _png_chunk(tag: bytes, payload: bytes) -> bytes:
-    return (
-        struct.pack(">I", len(payload))
-        + tag
-        + payload
-        + struct.pack(">I", zlib.crc32(tag + payload) & 0xFFFFFFFF)
-    )
-
-
 def write_png16(path, width: int, height: int, pixels: np.ndarray):
-    """io.rs:1651-1668 — RGBA 16-bit PNG, filter 0 rows."""
-    data = np.ascontiguousarray(pixels, dtype=">u2").reshape(height, width * 4)
-    raw = bytearray()
-    for row in data:
-        raw.append(0)  # filter: None
-        raw += row.tobytes()
-    ihdr = struct.pack(">IIBBBBB", width, height, 16, 6, 0, 0, 0)
-    with open(path, "wb") as fh:
-        fh.write(b"\x89PNG\r\n\x1a\n")
-        fh.write(_png_chunk(b"IHDR", ihdr))
-        fh.write(_png_chunk(b"IDAT", zlib.compress(bytes(raw), 6)))
-        fh.write(_png_chunk(b"IEND", b""))
+    """io.rs:1651-1668 — RGBA 16-bit PNG."""
+    png.write(path, np.asarray(pixels, np.uint16).reshape(height, width, 4))
 
 
 def read_png16(path) -> np.ndarray:
-    """Decode our own 16-bit RGBA PNG output (filters 0-4 supported)."""
-    with open(path, "rb") as fh:
-        blob = fh.read()
-    assert blob[:8] == b"\x89PNG\r\n\x1a\n", "not a PNG"
-    pos = 8
-    idat = bytearray()
-    w = h = depth = ctype = None
-    while pos < len(blob):
-        (length,) = struct.unpack(">I", blob[pos:pos + 4])
-        tag = blob[pos + 4:pos + 8]
-        payload = blob[pos + 8:pos + 8 + length]
-        if tag == b"IHDR":
-            w, h, depth, ctype = struct.unpack(">IIBB", payload[:10])
-            interlace = payload[12]
-            if interlace != 0:
-                # Adam7 lays rows out in 7 passes; the sequential
-                # defilter would silently scramble pixels (the length
-                # guard passes because interlaced data is LARGER)
-                raise ValueError(
-                    "interlaced (Adam7) 16-bit PNGs are not supported")
-        elif tag == b"IDAT":
-            idat += payload
-        pos += 12 + length
-    assert depth == 16 and ctype in (2, 6), f"not RGB(A)16: depth={depth} ctype={ctype}"
-    channels = 4 if ctype == 6 else 3
-    raw = zlib.decompress(bytes(idat))
-    stride = w * 2 * channels
-    bpp = 2 * channels
-    fast = _png_defilter_native(raw, h, stride, bpp)
-    if fast is not None:
-        arr = np.frombuffer(fast, ">u2").astype(np.uint16).reshape(h, w, channels)
-        if channels == 3:
-            arr = np.concatenate(
-                [arr, np.full((h, w, 1), 65535, np.uint16)], axis=-1)
-        return arr
-    out = bytearray()
-    prev = bytes(stride)
-    for y in range(h):
-        f = raw[y * (stride + 1)]
-        line = bytearray(raw[y * (stride + 1) + 1:(y + 1) * (stride + 1)])
-        if f == 1:
-            for i in range(bpp, stride):
-                line[i] = (line[i] + line[i - bpp]) & 0xFF
-        elif f == 2:
-            for i in range(stride):
-                line[i] = (line[i] + prev[i]) & 0xFF
-        elif f == 3:
-            for i in range(stride):
-                a = line[i - bpp] if i >= bpp else 0
-                line[i] = (line[i] + ((a + prev[i]) >> 1)) & 0xFF
-        elif f == 4:
-            for i in range(stride):
-                a = line[i - bpp] if i >= bpp else 0
-                b = prev[i]
-                c = prev[i - bpp] if i >= bpp else 0
-                pa, pb, pc = abs(b - c), abs(a - c), abs(a + b - 2 * c)
-                pr = a if (pa <= pb and pa <= pc) else (b if pb <= pc else c)
-                line[i] = (line[i] + pr) & 0xFF
-        out += line
-        prev = bytes(line)
-    arr = np.frombuffer(bytes(out), ">u2").astype(np.uint16).reshape(h, w, channels)
-    if channels == 3:  # expand RGB16 -> RGBA16 with opaque alpha (io.rs:606-617)
-        arr = np.concatenate([arr, np.full((h, w, 1), 65535, np.uint16)], axis=-1)
+    """Decode a 16-bit RGB(A) PNG -> u16 [H, W, 4] (RGB gets opaque alpha,
+    io.rs:606-617)."""
+    arr = png.read(path)
+    if arr.dtype != np.uint16:
+        raise ValueError("not a 16-bit PNG")
     return arr
 
 
 # ---------------------------------------------------------------------------
 # TIFF writer (little-endian, single strip, none/LZW/deflate)
 # ---------------------------------------------------------------------------
-
-
-def _png_defilter_native(raw: bytes, h: int, stride: int, bpp: int):
-    """C++ defilter fast path (native/bytecodec.cpp) — foreign 16-bit PNGs
-    use adaptive per-row filters 1-4, which are byte-serial and minutes-slow
-    in the Python oracle loop below.  Returns None when the native library
-    is unavailable (the oracle runs instead)."""
-    import ctypes
-
-    from paintfe_tpu import native
-
-    lib = native.load()
-    if lib is None or len(raw) < h * (stride + 1):
-        return None
-    out = bytearray(h * stride)
-    rc = lib.png_defilter(
-        (ctypes.c_uint8 * len(raw)).from_buffer_copy(raw),
-        (ctypes.c_uint8 * len(out)).from_buffer(out),
-        h, stride, bpp)
-    return bytes(out) if rc == 0 else None
 
 
 def _lzw_encode_native(data: bytes):

@@ -1,6 +1,6 @@
 """Native (C++) runtime components, built on demand with g++ + ctypes.
 
-The compute path is JAX/XLA/Pallas; these are the host-runtime pieces that
+The compute path is JAX/XLA; these are the host-runtime pieces that
 are data-dependent and iterative (the parts the reference also keeps in
 native code): PatchMatch inpainting, instant-brush fill.
 

@@ -5,7 +5,7 @@ function `(img_u8 [H,W,4], mask?, params...) -> img_u8` with the reference's
 semantics: f32 math on 0..255-scaled channels, round-half-up clamp to u8,
 masked-out pixels (mask==0) copied through unchanged.
 
-TPU shape: ops are elementwise VPU work that XLA fuses; tone ops are 256-LUT
+Device shape: ops are elementwise work that XLA fuses; tone ops are 256-LUT
 gathers (see paintfe_tpu.ops.luts for host-side LUT construction and chain
 fusion by composition).
 """
@@ -20,7 +20,7 @@ import numpy as np
 
 from paintfe_tpu.core.colorspace import hsl_to_rgb, luma_bt709, rgb_to_hsl
 from paintfe_tpu.ops import luts
-from paintfe_tpu.utils.quant import exact_div, exact_div_hw, round_u8
+from paintfe_tpu.utils.quant import exact_div, round_u8
 
 
 def _f32(x):
@@ -103,12 +103,12 @@ def auto_levels(img, mask=None):
 
     def stretch(c):
         # per-channel affine stretch evaluated directly (the LUT formula on
-        # the pixel itself — gathers don't vectorize on TPU)
+        # the pixel itself; the table would depend on the image)
         lo = jnp.min(jnp.where(opaque, c, 255)).astype(jnp.int32)
         hi = jnp.max(jnp.where(opaque, c, 0)).astype(jnp.int32)
         i = c.astype(jnp.float32)
         rng = (hi - lo).astype(jnp.float32)
-        stretched = exact_div_hw(i - lo.astype(jnp.float32), rng) * 255.0
+        stretched = (i - lo.astype(jnp.float32)) / rng * 255.0
         v = jnp.where(i <= lo.astype(jnp.float32), 0.0,
                       jnp.where(i >= hi.astype(jnp.float32), 255.0, stretched))
         out = round_u8(v)
@@ -263,47 +263,11 @@ def gradient_map(img, lut_rgba, mask=None):
 
 
 def gradient_map_stops(img, stops, mask=None):
-    """Gradient map evaluated directly from the color stops on TPU (the LUT
-    gather is pathological there); identical math to luts.gradient_map_lut
-    applied at the truncated-luma integer index."""
-    if jax.default_backend() != "tpu":
-        from paintfe_tpu.ops.luts import gradient_map_lut
+    """Gradient map from color stops: luts.gradient_map_lut at the
+    truncated-luma integer index."""
+    from paintfe_tpu.ops.luts import gradient_map_lut
 
-        return gradient_map(img, gradient_map_lut(stops), mask)
-
-    key = tuple((float(st[0]), tuple(float(c) for c in st[1]))
-                for st in sorted(stops, key=lambda st: st[0]))  # stable
-    return _masked(img, _gradient_map_stops_fn(key)(img), mask)
-
-
-@functools.lru_cache(maxsize=64)
-def _gradient_map_stops_fn(stops: tuple):
-    """Jitted program per stop tuple (cached builder — the hard-won rule:
-    a fresh jit closure per call retraces every frame)."""
-    ts = [np.float32(t) for t, _ in stops]
-    cols = [np.asarray(col, np.float32) for _, col in stops]
-
-    @jax.jit
-    def run(img):
-        f = img.astype(jnp.float32)
-        lum = luma_bt709(f[..., 0], f[..., 1], f[..., 2])
-        i = jnp.minimum(jnp.floor(lum), 255.0)
-        t = exact_div(i, 255.0)
-        c = jnp.broadcast_to(cols[0], i.shape + (4,))
-        for j in range(len(ts) - 1):
-            span = np.float32(ts[j + 1] - ts[j])
-            if span <= 0:
-                frac = jnp.zeros_like(t)
-            else:
-                frac = exact_div(t - ts[j], span)
-            seg = cols[j][None] * (1.0 - frac[..., None]) + cols[j + 1][None] * frac[..., None]
-            c = jnp.where((t > ts[j])[..., None], seg, c)
-        c = jnp.where((t >= ts[-1])[..., None], jnp.broadcast_to(cols[-1], c.shape), c)
-        c = jnp.where((t <= ts[0])[..., None], jnp.broadcast_to(cols[0], c.shape), c)
-        mapped = jnp.clip(jnp.floor(c + 0.5), 0.0, 255.0)
-        return jnp.concatenate([mapped[..., 0:3].astype(jnp.uint8), img[..., 3:4]], axis=-1)
-
-    return run
+    return gradient_map(img, gradient_map_lut(stops), mask)
 
 
 @jax.jit
@@ -358,175 +322,21 @@ def apply_rgba_luts(img, luts4, mask=None):
 
 
 def levels(img, in_black, in_white, gamma, out_black, out_white, mask=None):
-    """5-parameter levels (adjustments.rs:424-489).
-
-    LUT gather on CPU; direct formula on TPU (bit-identical — verified over
-    all 256 inputs — and ~8000x faster there: per-pixel table gathers do
-    not vectorize on the 8x128 VPU)."""
-    if jax.default_backend() == "tpu":
-        return levels_direct(img, in_black, in_white, gamma, out_black,
-                             out_white, mask)
+    """5-parameter levels (adjustments.rs:424-489) as a host-built LUT."""
     lut = luts.levels_lut(in_black, in_white, gamma, out_black, out_white)
     return apply_rgb_lut(img, lut, mask)
 
 
-def levels_direct(img, in_black, in_white, gamma, out_black, out_white, mask=None):
-    fn = _levels_direct_fn(float(in_black), float(in_white), float(gamma),
-                           float(out_black), float(out_white))
-    return _masked(img, fn(img), mask)
-
-
-@functools.lru_cache(maxsize=64)
-def _levels_direct_fn(in_black, in_white, gamma, out_black, out_white):
-    """Levels evaluated directly per pixel — bit-identical to the LUT gather
-    because pixel values are integers 0..255 and the formula + rounding is
-    the LUT builder's own math.  On TPU this runs as fused VPU elementwise
-    work, where a per-pixel 256-entry table gather is pathologically slow
-    (gathers don't vectorize on the 8x128 VPU)."""
-    in_black_f = np.float32(in_black)
-    in_range = np.maximum(np.float32(in_white) - in_black_f, np.float32(1.0))
-    out_black_f = np.float32(out_black)
-    out_range = np.float32(out_white) - out_black_f
-    inv_gamma = np.float32(1.0) / np.maximum(np.float32(gamma), np.float32(0.01))
-
-    @jax.jit
-    def run(img):
-        v = img[..., 0:3].astype(jnp.float32)
-        normalized = jnp.clip(exact_div(v - in_black_f, in_range), 0.0, 1.0)
-        out = out_black_f + jnp.power(normalized, inv_gamma) * out_range
-        rgb = round_u8(out)
-        return jnp.concatenate([rgb, img[..., 3:4]], axis=-1)
-
-    return run
-
-
-def _levels_eval(v, in_black, in_white, gamma, out_black=0, out_white=255):
-    """One quantized levels stage on an f32 tensor (LUT-builder math)."""
-    in_black_f = np.float32(in_black)
-    in_range = np.maximum(np.float32(in_white) - in_black_f, np.float32(1.0))
-    out_black_f = np.float32(out_black)
-    out_range = np.float32(out_white) - out_black_f
-    inv_gamma = np.float32(1.0) / np.maximum(np.float32(gamma), np.float32(0.01))
-    normalized = jnp.clip(exact_div(v - in_black_f, in_range), 0.0, 1.0)
-    out = out_black_f + jnp.power(normalized, inv_gamma) * out_range
-    return jnp.clip(jnp.floor(out + 0.5), 0.0, 255.0)
-
-
-def _curve_eval(v, tangents):
-    """Evaluate a Fritsch-Carlson curve directly per pixel — the LUT
-    builder's own math (luts.curves_lut) applied to a traced f32 tensor,
-    so results are bit-identical to the table for integer inputs while
-    running as fused elementwise VPU work (a per-pixel 256-entry gather is
-    pathologically slow on TPU)."""
-    if tangents is None:
-        return v
-    xs, ys, m = tangents
-    n = len(xs)
-    out = jnp.full_like(v, np.float32(ys[0]))
-    for seg in range(n - 1):
-        x0, x1 = np.float32(xs[seg]), np.float32(xs[seg + 1])
-        y0, y1 = np.float32(ys[seg]), np.float32(ys[seg + 1])
-        h = np.float32(x1 - x0)
-        if abs(float(h)) < 1e-6:
-            val = jnp.full_like(v, np.float32(y0))
-        else:
-            t = exact_div(v - x0, h)
-            t2 = t * t
-            t3 = t2 * t
-            h00 = 2.0 * t3 - 3.0 * t2 + 1.0
-            h10 = t3 - 2.0 * t2 + t
-            h01 = -2.0 * t3 + 3.0 * t2
-            h11 = t3 - t2
-            val = (h00 * y0 + h10 * (h * np.float32(m[seg]))
-                   + h01 * y1 + h11 * (h * np.float32(m[seg + 1])))
-        # builder picks the LAST segment with x >= xs[seg]
-        out = jnp.where(v >= x0, val, out)
-    out = jnp.where(v <= np.float32(xs[0]), np.float32(ys[0]), out)
-    out = jnp.where(v >= np.float32(xs[-1]), np.float32(ys[-1]), out)
-    return out
-
-
-def _quantize_curve(v, tangents):
-    """One curve stage with the LUT's u8 quantization, staying in f32."""
-    if tangents is None:
-        return v
-    return jnp.clip(jnp.floor(_curve_eval(v, tangents) + 0.5), 0.0, 255.0)
-
-
-def curves_direct(img, channel_points, mask=None):
-    """Multi-channel curves evaluated per pixel (no table gathers): the RGB
-    curve applies first with u8 quantization, then the per-channel curve —
-    the same composition order as luts.multi_channel_luts."""
-    key = tuple(
-        (tuple((float(x), float(y)) for x, y in points) if points else (),
-         bool(enabled))
-        for points, enabled in channel_points
-    )
-    return _masked(img, _curves_direct_fn(key)(img), mask)
-
-
-@functools.lru_cache(maxsize=64)
-def _curves_direct_fn(channel_points: tuple):
-    prepared = []
-    for points, enabled in channel_points:
-        prepared.append(luts.curves_tangents(points) if enabled and points else None)
-    while len(prepared) < 5:
-        prepared.append(None)
-    rgb_t, r_t, g_t, b_t, a_t = prepared[:5]
-
-    @jax.jit
-    def run(img):
-        chans = []
-        for c, t in enumerate((r_t, g_t, b_t, a_t)):
-            v = img[..., c].astype(jnp.float32)
-            if c < 3:
-                v = _quantize_curve(v, rgb_t)
-            v = _quantize_curve(v, t)
-            chans.append(v.astype(jnp.uint8))
-        return jnp.stack(chans, axis=-1)
-
-    return run
-
-
 def levels_per_channel(img, master, r_ch, g_ch, b_ch, mask=None):
-    """Master + per-channel composed levels.  On TPU, evaluated directly:
-    master formula, u8 quantize, channel formula — the same composition the
-    LUT path bakes via compose_luts."""
-    if jax.default_backend() == "tpu":
-        key = tuple(tuple(float(v) for v in ch)
-                    for ch in (master, r_ch, g_ch, b_ch))
-        return _masked(img, _levels_per_channel_fn(key)(img), mask)
+    """Master + per-channel composed levels (luts.compose_luts order)."""
     lut3 = luts.levels_multi_channel_luts(master, r_ch, g_ch, b_ch)
     luts4 = np.concatenate([lut3, luts.identity_lut()[None]], axis=0)
     return apply_rgba_luts(img, luts4, mask)
 
 
-@functools.lru_cache(maxsize=64)
-def _levels_per_channel_fn(key: tuple):
-    master, r_ch, g_ch, b_ch = key
-
-    @jax.jit
-    def run(img):
-        chans = []
-        for c, ch in enumerate((r_ch, g_ch, b_ch)):
-            v = img[..., c].astype(jnp.float32)
-            v = _levels_eval(v, *master)
-            v = _levels_eval(v, *ch)
-            chans.append(v.astype(jnp.uint8))
-        return jnp.concatenate(
-            [jnp.stack(chans, axis=-1), img[..., 3:4]], axis=-1
-        )
-
-    return run
-
-
 def curves(img, channel_points, mask=None):
-    """Multi-channel curves [RGB, R, G, B, A] of (points, enabled).
-
-    LUT gathers on CPU; direct Fritsch-Carlson evaluation on TPU
-    (bit-identical, gather-free)."""
-    if jax.default_backend() == "tpu":
-        return curves_direct(img, channel_points, mask)
+    """Multi-channel curves [RGB, R, G, B, A] of (points, enabled), as
+    host-built per-channel LUTs."""
     return apply_rgba_luts(img, luts.multi_channel_luts(channel_points), mask)
 
 

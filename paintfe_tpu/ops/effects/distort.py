@@ -4,8 +4,8 @@ Behavioral contract: src/ops/effects/distort.rs — jittered-grid Voronoi
 crystallize (:26-169), block-center pixelate (:333-373), radial bulge
 (:396-437), falloff-rotation twist (:460-500), turbulence-displacement dents
 (:248-310).  All samplers are inverse maps: dst(x,y) = src(f(x,y)) with
-edge-clamped bilinear gathers, which on TPU become vectorized gathers over
-the whole image.
+edge-clamped bilinear gathers, which become vectorized gathers over the
+whole image.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from paintfe_tpu.utils.hashing import hash_f32, turbulence_2d
-from paintfe_tpu.utils.quant import exact_div, exact_div_hw, round_u8
+from paintfe_tpu.utils.quant import exact_div, round_u8
 
 f32 = np.float32
 
@@ -154,8 +154,7 @@ def _crystallize_fn_int(c: int, seed: int, h: int, w: int):
     """Gather/scatter-free crystallize for integer cell sizes.
 
     The general formulation (above) gathers jittered seed coordinates and
-    the per-cell averages per pixel — pathological on TPU (~1.3 s per 4K
-    frame).  With an integer cell pitch everything regularizes: seeds are
+    the per-cell averages per pixel.  With an integer cell pitch everything regularizes: seeds are
     recomputed per pixel from the hash (pure arithmetic), per-cell sums
     become block reshape-reductions shifted at cell granularity, and the
     winning cell's average reaches each pixel by cell-level pad/slice +
@@ -264,44 +263,6 @@ def crystallize(img, cell_size: float, seed: int = 42, mask=None):
 # ---------------------------------------------------------------------------
 
 
-def _kernel_warp_eligible(h: int, w: int) -> bool:
-    """TPU + big frame only: below ~0.5 Mpix the XLA gather is cheap and a
-    fresh Mosaic specialization costs far more than it saves."""
-    return jax.default_backend() == "tpu" and h * w >= (1 << 19)
-
-
-@jax.jit
-def _keep_outside_norm(img, warped, norm):
-    return jnp.where((norm >= 1.0)[..., None], img, warped)
-
-
-def _kernel_clamp_warp(img, src_x, src_y, plan_key=None):
-    """TPU fast path for the inverse-mapped samplers: the Pallas sweep
-    gather in clamp mode (bit-exact with round_u8(sample_bilinear)).
-    Returns None off-TPU, for small images (the XLA gather is cheap there
-    and each kernel specialization costs a Mosaic compile), under an
-    outer jax trace (the bucket plan needs concrete field values — e.g.
-    the vmapped batch pipeline or a bench fori_loop), or when the field
-    is infeasible.
-
-    plan_key: set when the field is a pure function of the effect
-    parameters (dents/twist/bulge) — the DMA window plan then runs once
-    per parameter set and repeat calls are sync-free pure kernel time."""
-    import jax.core
-
-    if any(isinstance(v, jax.core.Tracer) for v in (img, src_x, src_y)):
-        return None
-    if not _kernel_warp_eligible(img.shape[0], img.shape[1]):
-        return None
-    from paintfe_tpu.ops import warp_kernel
-
-    if plan_key is not None:
-        return warp_kernel.gather_bilinear_u8_planned(
-            img, src_x, src_y, plan_key, mode="clamp", interpret=False)
-    return warp_kernel.gather_bilinear_u8(img, src_x, src_y, mode="clamp",
-                                          interpret=False)
-
-
 def _bulge_coords(amount, cx, cy, max_r, strength, h, w):
     xs, ys = _coord_grids(h, w)
     dx = xs - cx
@@ -340,32 +301,10 @@ def _bulge_fn(amount: float, ox: float, oy: float, h: int, w: int):
     return run
 
 
-@functools.lru_cache(maxsize=64)
-def _bulge_coords_fn(amount: float, ox: float, oy: float, h: int, w: int):
-    cx, cy, max_r, strength = _bulge_params(amount, ox, oy, h, w)
-    return jax.jit(functools.partial(_bulge_coords, amount, cx, cy, max_r,
-                                     strength, h, w))
-
-
-@functools.lru_cache(maxsize=2)  # ~192MB/entry at 4K: bound HBM pinning
-def _bulge_field(amount: float, ox: float, oy: float, h: int, w: int):
-    """Device-resident (src_x, src_y, norm) for a bulge parameter set —
-    computed once; repeat calls (interactive slider jiggling back, batch
-    scripts) reuse the arrays instead of re-running the field program."""
-    return _bulge_coords_fn(amount, ox, oy, h, w)()
-
-
 def bulge(img, amount: float, origin=(0.5, 0.5), mask=None):
     """Radial scale about origin, inverse-mapped bilinear (distort.rs:396-458)."""
     h, w = img.shape[:2]
     key = (float(amount), float(origin[0]), float(origin[1]), h, w)
-    if _kernel_warp_eligible(h, w):
-        src_x, src_y, norm = _bulge_field(*key)
-        warped = _kernel_clamp_warp(img, src_x, src_y,
-                                    plan_key=("bulge",) + key)
-        if warped is not None:
-            out = _keep_outside_norm(jnp.asarray(img), warped, norm)
-            return _masked(img, out, mask)
     out = _bulge_fn(*key)(img)
     return _masked(img, out, mask)
 
@@ -404,29 +343,10 @@ def _twist_fn(angle_deg: float, ox: float, oy: float, h: int, w: int):
     return run
 
 
-@functools.lru_cache(maxsize=64)
-def _twist_coords_fn(angle_deg: float, ox: float, oy: float, h: int, w: int):
-    cx, cy, max_r, twist_amount = _twist_params(angle_deg, ox, oy, h, w)
-    return jax.jit(functools.partial(_twist_coords, cx, cy, max_r,
-                                     twist_amount, h, w))
-
-
-@functools.lru_cache(maxsize=2)  # ~128MB/entry at 4K: bound HBM pinning
-def _twist_field(angle_deg: float, ox: float, oy: float, h: int, w: int):
-    """Device-resident (src_x, src_y) for a twist parameter set."""
-    return _twist_coords_fn(angle_deg, ox, oy, h, w)()
-
-
 def twist(img, angle_deg: float, origin=(0.5, 0.5), mask=None):
     """Rotation by angle*(1-dist/max_r) about center (distort.rs:460-500)."""
     h, w = img.shape[:2]
     key = (float(angle_deg), float(origin[0]), float(origin[1]), h, w)
-    if _kernel_warp_eligible(h, w):
-        src_x, src_y = _twist_field(*key)
-        warped = _kernel_clamp_warp(img, src_x, src_y,
-                                    plan_key=("twist",) + key)
-        if warped is not None:
-            return _masked(img, warped, mask)
     out = _twist_fn(*key)(img)
     return _masked(img, out, mask)
 
@@ -447,10 +367,8 @@ def _dents_coords(scale, amount, seed, oct_n, roughness, pinch, wrap,
         dy = ys - cy
         dist = jnp.maximum(jnp.sqrt(dx * dx + dy * dy), 1.0)
         factor = (1.0 - exact_div(dist, f32(max(cx, cy)))) * 0.5
-        # runtime-tensor divides need the TPU Newton step (the VPU divide
-        # is ~1 ulp off; CPU is already correctly rounded)
-        nx = nx_raw + exact_div_hw(dx, dist) * factor
-        ny = ny_raw + exact_div_hw(dy, dist) * factor
+        nx = nx_raw + dx / dist * factor
+        ny = ny_raw + dy / dist * factor
     else:
         nx, ny = nx_raw, ny_raw
     src_x = xs + nx * f32(amount) * f32(scale)
@@ -475,34 +393,11 @@ def _dents_fn(scale, amount, seed, octaves, roughness, pinch, wrap, h, w):
     return run
 
 
-@functools.lru_cache(maxsize=32)
-def _dents_coords_fn(scale, amount, seed, octaves, roughness, pinch, wrap, h, w):
-    inv_scale = f32(1.0) / f32(max(scale, 0.5))
-    oct_n = int(np.clip(octaves, 1, 8))
-    return jax.jit(functools.partial(_dents_coords, scale, amount, seed,
-                                     oct_n, roughness, pinch, wrap,
-                                     inv_scale, h, w))
-
-
-@functools.lru_cache(maxsize=8)
-def _dents_field(*key):
-    """Device-resident (src_x, src_y) for a dents parameter set — the
-    turbulence field (the expensive half of the op) is computed once per
-    parameter set and reused across frames."""
-    return _dents_coords_fn(*key)()
-
-
 def dents(img, scale, amount, seed=42, octaves=2, roughness=0.5, pinch=False,
           wrap=False, mask=None):
     """Turbulence-field displacement warp (distort.rs:248-310)."""
     h, w = img.shape[:2]
     key = (float(scale), float(amount), int(seed), int(octaves),
            float(roughness), bool(pinch), bool(wrap), h, w)
-    if _kernel_warp_eligible(h, w):
-        src_x, src_y = _dents_field(*key)
-        warped = _kernel_clamp_warp(img, src_x, src_y,
-                                    plan_key=("dents",) + key)
-        if warped is not None:
-            return _masked(img, warped, mask)
     out = _dents_fn(*key)(img)
     return _masked(img, out, mask)

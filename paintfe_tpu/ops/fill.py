@@ -6,7 +6,7 @@ relaxation steps with 4/8-connectivity) and the CPU fill path's perceptual
 sRGB->linear color distance + AA threshold mask
 (src/ui/panels/tools/behavior/raster/fill_magic.rs:78-132, 415-467).
 
-TPU shape: the distance map is fused elementwise work; contiguous
+Device shape: the distance map is fused elementwise work; contiguous
 reachability is a `lax.while_loop` of whole-run segment spreads
 (associative prefix scans along rows/columns) that converges in
 O(#path direction changes) iterations — the reference GPU relaxes one

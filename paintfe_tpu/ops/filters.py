@@ -5,9 +5,9 @@ truncated at ceil(3*sigma), H pass u8->f32, V pass f32->u8 round-half-up)
 and src/ops/effects/{blur,noise,stylize}.rs (box / motion / bokeh / zoom
 blur, median window sort, bilateral reduce-noise, unsharp mask, glow).
 
-TPU shape: each separable pass unrolls the tap loop into a chain of fused
+Device shape: each separable pass unrolls the tap loop into a chain of fused
 shift+multiply+adds over the whole [H, W, 4] image — XLA fuses them into one
-elementwise kernel; edge clamping becomes precomputed gather indices.
+elementwise kernel; edge clamping becomes an edge-replicate pad.
 Integer-exact ops (box, bokeh, motion, zoom, median) are order-insensitive;
 the Gaussian accumulates f32 in reference tap order for golden parity.
 """
@@ -41,8 +41,7 @@ def to_radians_f32(deg) -> np.float32:
 
 def _pad_x(img, r, w):
     """Edge-replicate pad along axis 1 so taps become static slices (XLA
-    fuses slices of one buffer into a single elementwise kernel on TPU,
-    where per-tap gathers do not)."""
+    fuses slices of one buffer into a single elementwise kernel)."""
     if r == 0:
         return img
     return jnp.concatenate(
@@ -115,21 +114,7 @@ def _gaussian_fn(sigma: float, h: int, w: int):
 
 
 def gaussian_blur(img, sigma: float, mask=None):
-    """Full-image separable Gaussian blur (filters.rs:242-316).
-
-    Dispatch mirrors the reference's GPU-when-possible policy
-    (filters.rs:44-70: GPU pipeline when available and no selection, CPU
-    otherwise): on a TPU backend with no mask and a concrete array, the
-    fused two-pass Pallas kernel runs (bit-identical, ~3x faster); masked,
-    traced (inside someone else's jit/vmap), or CPU inputs take the XLA
-    separable path."""
-    import jax
-
-    if (mask is None and not isinstance(img, jax.core.Tracer)
-            and jax.default_backend() == "tpu"):
-        from paintfe_tpu.ops.pallas_kernels import gaussian_blur_fused
-
-        return gaussian_blur_fused(img, float(sigma))
+    """Full-image separable Gaussian blur (filters.rs:242-316)."""
     h, w = img.shape[:2]
     out = _gaussian_fn(float(sigma), h, w)(img)
     return _masked(img, out, mask)
@@ -443,8 +428,8 @@ def _median_fn(r: int, h: int, w: int):
             for dxx in range(-r, r + 1):
                 taps.append(_tap_x(row, r, dxx, w))
         # compare-exchange network instead of jnp.sort: pure fused min/max
-        # elementwise ops (sort's TPU lowering allocates enormous scratch
-        # at 4K), exact same sorted result -> identical median
+        # elementwise ops, exact same sorted result -> identical median;
+        # only the comparators the median output depends on survive DCE
         for i, j in network:
             lo = jnp.minimum(taps[i], taps[j])
             hi = jnp.maximum(taps[i], taps[j])
@@ -455,21 +440,9 @@ def _median_fn(r: int, h: int, w: int):
 
 
 def median(img, radius: int, mask=None):
-    """Per-channel window-sort median (effects/noise.rs:357-411).
-
-    Radius >= 2 on TPU routes through the tiled Pallas kernel
-    (pallas_kernels.median_pallas): the XLA network keeps (2r+1)^2
-    full-frame taps live in HBM, which blows up past radius 1 (~10 s per
-    4K frame at radius 4); the kernel keeps them VMEM-resident and prunes
-    the network to the median output.  Bit-identical results."""
-    import jax as _jax
-
+    """Per-channel window-sort median (effects/noise.rs:357-411)."""
     h, w = img.shape[:2]
     r = max(int(radius), 1)
-    if r >= 2 and _jax.default_backend() == "tpu" and h * w >= (1 << 19):
-        from paintfe_tpu.ops.pallas_kernels import median_pallas
-
-        return _masked(img, median_pallas(img, r, interpret=False), mask)
     out = _median_fn(r, h, w)(img)
     return _masked(img, out, mask)
 

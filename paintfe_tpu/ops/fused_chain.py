@@ -1,425 +1,24 @@
-"""The headline fused filter chain, channel-planar end to end.
+"""The headline filter chain: BASELINE.json's benchmark workload.
 
-BASELINE.json's benchmark workload: 4K gaussian blur + brightness/contrast +
-levels + sepia + soft-light flatten.  The naive composition of the public
-ops runs each stage on [H, W, 4] arrays; the 4-wide minor dimension makes
-every channel slice a relayout, and the separable blur materializes two f32
-frames of intermediates.  This module runs the whole chain on a [4, H, W]
-channel-planar view: one transpose in, the fused two-pass Pallas blur
-(ops/pallas_kernels.py), the pointwise stages as 2D per-plane math, the
-blend via the planar Porter-Duff (same math as core/blend.py), one
-transpose out.  Every stage quantizes to u8 exactly like the script-level
-apply_* ops, so the result is bit-identical to chaining the public ops.
-
-Measured on v5e (one chip): 5.4 ms -> ~1.8 ms for the blur alone; see
-bench.py for the end-to-end number.
+4K gaussian blur + brightness/contrast + levels + sepia + soft-light
+flatten, written as the composition of the public ops and left to XLA to
+fuse (PERF.md has the fusion count and time measured on the card).
 """
 
 from __future__ import annotations
 
-import jax
-import jax.numpy as jnp
-import numpy as np
-
-from paintfe_tpu.utils.quant import exact_div, exact_div_hw
-
-f32 = np.float32
-
-
-def _trunc_plane(x):
-    return jnp.clip(x, 0.0, 255.0).astype(jnp.uint8)
-
-
-def _bc_planar(planes, brightness, contrast):
-    """brightness/contrast per rgb plane (scripting.rs:963-993 semantics)."""
-    c = f32(contrast)
-    factor = (f32(259.0) * (c + f32(255.0))) / (f32(255.0) * (f32(259.0) - c))
-    out = [
-        _trunc_plane(factor * (p.astype(jnp.float32) + f32(brightness) - f32(128.0)) + f32(128.0))
-        for p in planes[:3]
-    ]
-    return out + [planes[3]]
-
-
-def _levels_planar(planes, black, white, gamma):
-    in_black = f32(black)
-    in_range = np.maximum(f32(white) - in_black, f32(1.0))
-    inv_gamma = f32(1.0) / np.maximum(f32(gamma), f32(0.01))
-    out = []
-    for p in planes[:3]:
-        v = p.astype(jnp.float32)
-        normalized = jnp.clip(exact_div(v - in_black, in_range), 0.0, 1.0)
-        out.append(_trunc_plane(jnp.power(normalized, inv_gamma) * 255.0))
-    return out + [planes[3]]
-
-
-def _sepia_planar(planes, strength=None):
-    r = planes[0].astype(jnp.float32)
-    g = planes[1].astype(jnp.float32)
-    b = planes[2].astype(jnp.float32)
-    sr = jnp.minimum(r * 0.393 + g * 0.769 + b * 0.189, 255.0)
-    sg = jnp.minimum(r * 0.349 + g * 0.686 + b * 0.168, 255.0)
-    sb = jnp.minimum(r * 0.272 + g * 0.534 + b * 0.131, 255.0)
-    if strength is not None:
-        s = jnp.float32(np.clip(strength, 0.0, 1.0))
-        inv = 1.0 - s
-        sr, sg, sb = r * inv + sr * s, g * inv + sg * s, b * inv + sb * s
-    return [x.astype(jnp.uint8) for x in (sr, sg, sb)] + [planes[3]]
-
-
-def _blend_planar_jnp(base, top, mode: int, opacity: float):
-    """core/blend.py blend_u8 restated on channel planes (lists of 2D u8)."""
-    from paintfe_tpu.core.blend import _RGB_MIXERS, BlendMode
-
-    opacity = jnp.clip(jnp.float32(opacity), 0.0, 1.0)
-    bf = [exact_div(p.astype(jnp.float32), 255.0) for p in base]
-    tf = [exact_div(p.astype(jnp.float32), 255.0) for p in top]
-    base_a = bf[3]
-    top_a = tf[3] * opacity
-    mode = BlendMode(int(mode))
-
-    def q(x):
-        return jnp.clip(x * 255.0, 0.0, 255.0).astype(jnp.uint8)
-
-    if mode == BlendMode.OVERWRITE:
-        planes = [q(tf[0]), q(tf[1]), q(tf[2]), q(top_a)]
-    elif mode == BlendMode.XOR:
-        xor_a = base_a * (1.0 - top_a) + top_a * (1.0 - base_a)
-        empty = xor_a == 0.0
-        safe = jnp.where(empty, 1.0, xor_a)
-        planes = []
-        for c in range(3):
-            rgb = exact_div_hw(
-                bf[c] * base_a * (1.0 - top_a) + tf[c] * top_a * (1.0 - base_a), safe
-            )
-            planes.append(q(jnp.where(empty, 0.0, rgb)))
-        planes.append(q(jnp.where(empty, 0.0, xor_a)))
-    else:
-        mixer = _RGB_MIXERS[mode]
-        inv = 1.0 - top_a
-        out_a = top_a + base_a * inv
-        empty = out_a == 0.0
-        safe = jnp.where(empty, 1.0, out_a)
-        planes = []
-        for c in range(3):
-            rgb = exact_div_hw(mixer(bf[c], tf[c]) * top_a + bf[c] * base_a * inv, safe)
-            planes.append(q(jnp.where(empty, 0.0, rgb)))
-        planes.append(q(jnp.where(empty, 0.0, out_a)))
-
-    if mode == BlendMode.NORMAL:
-        take_top = jnp.logical_and(opacity >= 1.0, top[3] == 255)
-        planes = [jnp.where(take_top, top[c], planes[c]) for c in range(4)]
-    clear = top[3] == 0
-    return [jnp.where(clear, base[c], planes[c]) for c in range(4)]
+from paintfe_tpu.core.blend import BlendMode, blend_u8
+from paintfe_tpu.ops import filters
+from paintfe_tpu.parallel.pipeline import _bc_device, _levels_device, _sepia_device
 
 
 def fused_chain(img, overlay, *, sigma=2.0, brightness=10.0, contrast=20.0,
                 black=10.0, white=245.0, gamma=1.1, sepia_strength=0.5,
-                blend_mode=None, blend_opacity=0.6, interpret=None):
-    """u8 [H, W, 4] x2 -> u8 [H, W, 4]; bit-identical to chaining
-    gaussian_blur + _bc_device + _levels_device + _sepia_device + blend_u8."""
-    from paintfe_tpu.core.blend import BlendMode
-    from paintfe_tpu.ops.pallas_kernels import gaussian_blur_fused_planar
-
-    if blend_mode is None:
-        blend_mode = BlendMode.SOFT_LIGHT
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-
-    img = jnp.asarray(img, jnp.uint8)
-    overlay = jnp.asarray(overlay, jnp.uint8)
-    h, w = img.shape[0], img.shape[1]
-    planar = jnp.transpose(img, (2, 0, 1))
-    blurred = gaussian_blur_fused_planar(planar, h, w, sigma,
-                                         interpret=interpret)
-    planes = [blurred[c] for c in range(4)]
-    planes = _bc_planar(planes, brightness, contrast)
-    planes = _levels_planar(planes, black, white, gamma)
-    planes = _sepia_planar(planes, sepia_strength)
-    ovp = jnp.transpose(overlay, (2, 0, 1))
-    out = _blend_planar_jnp(planes, [ovp[c] for c in range(4)],
-                            int(blend_mode), blend_opacity)
-    return jnp.transpose(jnp.stack(out, axis=0), (1, 2, 0))
-
-
-# ---------------------------------------------------------------------------
-# The whole chain in ONE Pallas kernel: blur + pointwise + flatten per tile
-# ---------------------------------------------------------------------------
-#
-# fused_chain() above still crosses HBM between the blur kernel and the
-# pointwise/blend fusion (~265 MB per 4K frame).  This kernel reads the
-# image halo block and the overlay tile once, runs both blur passes, the
-# u8-quantized pointwise stages (emulated in f32: trunc == floor-of-clip),
-# and the soft-light flatten in VMEM, and writes the final tile.  Traffic:
-# two reads + one write (~100 MB per 4K frame).
-#
-# Pixels travel PACKED: the u8 [H, W, 4] image is bitcast to u32 [H, W], so
-# lanes hold whole pixels — each horizontal blur tap is ONE lane rotate for
-# all four channels (the channel-planar formulation needed four), there are
-# no layout transposes at the boundary, and channels unpack/repack with
-# integer shifts in-register.
-#
-# In-kernel notes (measured on v5e): Mosaic's jnp.power matches XLA's
-# bitwise; Mosaic lowers x/c as a true divide (no reciprocal rewrite), so
-# the barrier-free math stays bit-identical to the exact_div XLA path;
-# u32<->f32 casts hop through i32 (no direct lowering).
-
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-
-def _round_up(v, m):
-    return ((v + m - 1) // m) * m
-
-
-def _make_chain_kernel(taps, th, tw, halo_c, params, interpret):
-    # Under interpret the kernel body executes through XLA:CPU, which
-    # rewrites x/const into x*(1/const) (1 ulp) unless barriered; Mosaic
-    # lowers the divide directly (no rewrite) but the TPU VPU divide is not
-    # correctly rounded, so the compiled path applies the same one-step
-    # Newton refinement as utils.quant.exact_div does on TPU.
-    if interpret:
-        ediv = exact_div
-        rdiv = lambda x, c: x / c  # CPU divide is correctly rounded
-    else:
-        def ediv(x, c):
-            c = jnp.float32(c)
-            q = x / c
-            return q + (x - q * c) / c
-
-        def rdiv(x, c):
-            q = x / c
-            return q + (x - q * c) / c
-    nt = len(taps)
-    (brightness, contrast, black, white, gamma, sepia_strength,
-     blend_opacity) = params
-    bc_factor = (f32(259.0) * (f32(contrast) + f32(255.0))) / (
-        f32(255.0) * (f32(259.0) - f32(contrast)))
-    in_black = f32(black)
-    in_range = np.maximum(f32(white) - in_black, f32(1.0))
-    inv_gamma = f32(1.0) / np.maximum(f32(gamma), f32(0.01))
-    sep_s = f32(np.clip(sepia_strength, 0.0, 1.0))
-    sep_inv = f32(1.0) - sep_s
-    opacity = f32(np.clip(blend_opacity, 0.0, 1.0))
-
-    def unpack(v):  # u32 pixel lanes -> 4x f32 channel tiles
-        vi = v.astype(jnp.int32)
-        return (
-            (vi & 0xFF).astype(jnp.float32),
-            ((vi >> 8) & 0xFF).astype(jnp.float32),
-            ((vi >> 16) & 0xFF).astype(jnp.float32),
-            ((vi >> 24) & 0xFF).astype(jnp.float32),
-        )
-
-    def trunc255(x):  # u8 truncation emulated in f32
-        return jnp.floor(jnp.clip(x, 0.0, 255.0))
-
-    def kernel(src_hbm, ov_ref, out_ref, scratch, sem):
-        i = pl.program_id(0)
-        j = pl.program_id(1)
-        cp = pltpu.make_async_copy(
-            src_hbm.at[pl.ds(i * th, scratch.shape[0]), pl.ds(j * tw, halo_c)],
-            scratch, sem,
-        )
-        cp.start()
-        cp.wait()
-        tile = scratch[...]
-
-        # H pass: one static lane rotate per tap serves all four channels
-        accs = [None] * 4
-        for k in range(nt):
-            rolled = pltpu.roll(tile, halo_c - k, axis=1) if k else tile
-            ch = unpack(rolled[:, 0:tw])
-            for c in range(4):
-                term = ch[c] * taps[k]
-                accs[c] = term if accs[c] is None else accs[c] + term
-        # V pass: static sublane slices per channel
-        blurred = []
-        for c in range(4):
-            out = None
-            for k in range(nt):
-                term = accs[c][k:k + th, :] * taps[k]
-                out = term if out is None else out + term
-            # round_u8 parity: floor(x + 0.5) clipped, kept in f32
-            blurred.append(jnp.clip(jnp.floor(out + 0.5), 0.0, 255.0))
-
-        # brightness/contrast (clip then u8 truncation, kept in f32)
-        r, g, b = (
-            trunc255(jnp.clip(bc_factor * (blurred[c] + f32(brightness)
-                                           - f32(128.0)) + f32(128.0),
-                              0.0, 255.0))
-            for c in range(3)
-        )
-        a = blurred[3]
-
-        # levels (direct formula, truncating cast)
-        def levels(v):
-            normalized = jnp.clip(ediv(v - in_black, in_range), 0.0, 1.0)
-            return trunc255(jnp.clip(jnp.power(normalized, inv_gamma) * 255.0,
-                                     0.0, 255.0))
-
-        r, g, b = levels(r), levels(g), levels(b)
-
-        # sepia with strength
-        sr = jnp.minimum(r * 0.393 + g * 0.769 + b * 0.189, 255.0)
-        sg = jnp.minimum(r * 0.349 + g * 0.686 + b * 0.168, 255.0)
-        sb = jnp.minimum(r * 0.272 + g * 0.534 + b * 0.131, 255.0)
-        r = trunc255(r * sep_inv + sr * sep_s)
-        g = trunc255(g * sep_inv + sg * sep_s)
-        b = trunc255(b * sep_inv + sb * sep_s)
-
-        # soft-light flatten (blend_u8 math, straight alpha)
-        from paintfe_tpu.core.blend import _soft_light
-
-        ov = unpack(ov_ref[...])
-        bf = [ediv(x, 255.0) for x in (r, g, b, a)]
-        tf = [ediv(x, 255.0) for x in ov]
-        base_a = bf[3]
-        top_a = tf[3] * opacity
-        inv = 1.0 - top_a
-        out_a = top_a + base_a * inv
-        empty = out_a == 0.0
-        safe = jnp.where(empty, 1.0, out_a)
-        planes = []
-        for c in range(3):
-            rgb = rdiv(_soft_light(bf[c], tf[c]) * top_a + bf[c] * base_a * inv, safe)
-            planes.append(jnp.where(empty, 0.0, rgb))
-        planes.append(jnp.where(empty, 0.0, out_a))
-        clear = ov[3] == 0.0
-        base_pl = (r, g, b, a)
-        q = [
-            jnp.where(clear, base_pl[c],
-                      trunc255(planes[c] * 255.0)).astype(jnp.int32)
-            for c in range(4)
-        ]
-        out_ref[...] = (q[0] | (q[1] << 8) | (q[2] << 16)
-                        | (q[3] << 24)).astype(jnp.uint32)
-
-    return kernel
-
-
-import functools
-
-
-@functools.lru_cache(maxsize=16)
-def _chain_kernel_fn(taps, r, h, w, th, tw, params, interpret, vmem_limit):
-    hp = _round_up(h, th)
-    wp = _round_up(w, tw)
-    halo_r = _round_up(th + 2 * r, 8)
-    halo_c = _round_up(tw + 2 * r, 128)
-    grid = (hp // th, wp // tw)
-    extra = {}
-    if vmem_limit is not None and not interpret:
-        extra["compiler_params"] = pltpu.CompilerParams(
-            vmem_limit_bytes=vmem_limit)
-
-    def run(img, overlay):  # u8 [H, W, 4] x2
-        packed = jax.lax.bitcast_convert_type(img, jnp.uint32)
-        ovp = jax.lax.bitcast_convert_type(overlay, jnp.uint32)
-        bottom = (hp - th) + halo_r - (h + r)
-        right = (wp - tw) + halo_c - (w + r)
-        padded = jnp.pad(packed, ((r, bottom), (r, right)), mode="edge")
-        ovp = jnp.pad(ovp, ((0, hp - h), (0, wp - w)))
-        out = pl.pallas_call(
-            _make_chain_kernel(taps, th, tw, halo_c, params, interpret),
-            grid=grid,
-            in_specs=[
-                pl.BlockSpec(memory_space=pl.ANY),
-                pl.BlockSpec((th, tw), lambda i, j: (i, j)),
-            ],
-            out_specs=pl.BlockSpec((th, tw), lambda i, j: (i, j)),
-            out_shape=jax.ShapeDtypeStruct((hp, wp), jnp.uint32),
-            scratch_shapes=[
-                pltpu.VMEM((halo_r, halo_c), jnp.uint32),
-                pltpu.SemaphoreType.DMA,
-            ],
-            interpret=interpret,
-            **extra,
-        )(padded, ovp)
-        return jax.lax.bitcast_convert_type(out[:h, :w], jnp.uint8)
-
-    return jax.jit(run)
-
-
-# Mosaic's default scoped-VMEM cap is 16 MB; v5e has 128 MB physical VMEM.
-# The mega kernel's scoped need comes from the compiler's liveness window
-# across the fully-unrolled tap sweep, which no closed-form halo-area model
-# predicts (restructuring to incremental roll-by-1 only moved sigma=25 at
-# 128x512 from 51.7M to 21.5M — the stack, not one pass, is what grows).
-# Policy is therefore TABLE-DRIVEN on configs measured on a real v5e
-# (2026-08-19, this round):
-#   nt=121 @ 128x512 compiles under the default 16M cap (r=60)
-#   nt=151 @ 128x512 needs 51.68M  -> raised limit         (r=75)
-#   nt=253 @  64x256 needs 100.36M -> raised limit          (r=126)
-#   nt=253 @  32x128 needs 18.59M (small tiles do NOT save much)
-# Scoped need grows monotonically with tap count at fixed tile shape, so
-# each band is anchored at its measured worst endpoint.
-_RAISED_VMEM_LIMIT = 110 * 1024 * 1024
-
-# Reference parity: the GPU blur caps its radius at 127 and falls back to
-# the CPU path beyond (src/gpu/shaders.rs:933-936); the mega kernel caps
-# at r=126 (the largest measured-safe band) and falls back to the planar
-# two-kernel formulation, which is bit-identical by construction.
-MAX_KERNEL_RADIUS = 126
-
-
-def _pick_tiles(h, w, r):
-    """Prefer exact-divisor tiles: when (th | h) and (tw | w) the overlay
-    pad and output slice degenerate to no-ops (zero-width pad, full
-    slice), removing two full-frame XLA copies from the harness.
-    Measured on v5e at 4K (interleaved A/B medians, 5 trials): 128x512
-    (padded) 2.08 ms vs 240x768 (exact) 1.90 ms — the headline moves
-    from 4.0 to 4.4 GPix/s.  Falls back to 128x512 when no divisor
-    lands in the sweet-spot range.
-
-    The pick is BLUR-RADIUS aware, with bands anchored at on-chip
-    measurements (see the table above): big exact-divisor tiles only for
-    r <= 20, 128x512 to r = 75, 64x256 to r = 126; r > 60 also raises
-    the Mosaic scoped-VMEM limit (the round-4 halo-area budget was a
-    fantasy — sigma=25 at its 128x512 pick needed 51.68M on the chip).
-
-    Returns (th, tw, vmem_limit_bytes_or_None)."""
-    if r > 75:
-        return 64, 256, _RAISED_VMEM_LIMIT
-    if r > 60:
-        return 128, 512, _RAISED_VMEM_LIMIT
-    if r > 20:
-        return 128, 512, None
-    th = next((t for t in range(240, 63, -8) if h % t == 0), 128)
-    tw = next((t for t in range(768, 255, -128) if w % t == 0), 512)
-    return th, tw, None
-
-
-def fused_chain_kernel(img, overlay, *, sigma=2.0, brightness=10.0,
-                       contrast=20.0, black=10.0, white=245.0, gamma=1.1,
-                       sepia_strength=0.5, blend_opacity=0.6,
-                       th=None, tw=None, interpret=None):
-    """One-kernel version of fused_chain (soft-light flatten only);
-    bit-identical to it and to composing the public ops."""
-    from paintfe_tpu.ops.filters import gaussian_kernel
-
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    taps = gaussian_kernel(float(sigma))
-    r = (taps.shape[0] - 1) // 2
-    if r > MAX_KERNEL_RADIUS:
-        return fused_chain(
-            img, overlay, sigma=sigma, brightness=brightness,
-            contrast=contrast, black=black, white=white, gamma=gamma,
-            sepia_strength=sepia_strength, blend_opacity=blend_opacity,
-            interpret=interpret)
-    img = jnp.asarray(img, jnp.uint8)
-    overlay = jnp.asarray(overlay, jnp.uint8)
-    h, w = img.shape[0], img.shape[1]
-    auto_th, auto_tw, vmem_limit = _pick_tiles(h, w, r)
-    th = auto_th if th is None else th
-    tw = auto_tw if tw is None else tw
-    th = min(th, _round_up(h, 8))
-    tw = min(tw, _round_up(w, 128))
-    if r > 60:
-        vmem_limit = _RAISED_VMEM_LIMIT  # also for caller-forced tiles
-    params = (float(brightness), float(contrast), float(black), float(white),
-              float(gamma), float(sepia_strength), float(blend_opacity))
-    fn = _chain_kernel_fn(tuple(float(t) for t in taps), r, h, w, th, tw,
-                          params, interpret, vmem_limit)
-    return fn(img, overlay)
+                blend_mode=BlendMode.SOFT_LIGHT, blend_opacity=0.6):
+    """u8 [H, W, 4] x2 -> u8 [H, W, 4]: gaussian_blur, _bc_device,
+    _levels_device, _sepia_device, then blend_u8 of the overlay on top."""
+    x = filters.gaussian_blur(img, float(sigma))
+    x = _bc_device(x, brightness, contrast)
+    x = _levels_device(x, black, white, gamma)
+    x = _sepia_device(x, sepia_strength)
+    return blend_u8(x, overlay, int(blend_mode), blend_opacity)

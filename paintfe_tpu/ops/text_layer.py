@@ -19,9 +19,21 @@ import json
 from typing import List, Optional, Tuple
 
 import numpy as np
-from PIL import Image, ImageDraw, ImageFont
 
 f32 = np.float32
+
+
+def _pil():
+    """Pillow's (Image, ImageDraw, ImageFont): glyph rendering needs them,
+    and nothing else in this module does."""
+    from paintfe_tpu.io.codecs import CodecError
+
+    try:
+        from PIL import Image, ImageDraw, ImageFont
+    except ImportError as e:
+        raise CodecError(
+            "text rasterization needs Pillow, which is not installed") from e
+    return Image, ImageDraw, ImageFont
 
 _FONT_PATHS = {
     ("default", False, False): "/usr/share/fonts/truetype/dejavu/DejaVuSans.ttf",
@@ -38,6 +50,7 @@ def _load_font(family: str, size: int, bold: bool, italic: bool):
     key = (family if family in ("mono", "serif") else "default", bold, italic)
     path = _FONT_PATHS.get(key) or _FONT_PATHS.get((key[0], False, False)) \
         or _FONT_PATHS[("default", False, False)]
+    ImageFont = _pil()[2]
     try:
         return ImageFont.truetype(path, size=max(int(size), 1))
     except OSError:
@@ -187,7 +200,7 @@ class TextLayerData:
 
     def rasterize(self, width: int, height: int) -> np.ndarray:
         """Render all blocks + layer effects to RGBA u8 [H, W, 4]."""
-        img = Image.new("RGBA", (width, height), (0, 0, 0, 0))
+        img = _pil()[0].new("RGBA", (width, height), (0, 0, 0, 0))
         for block in self.blocks:
             _render_block(img, block)
         out = np.asarray(img, np.uint8).copy()
@@ -401,7 +414,8 @@ def _warp_positions(block: TextBlock, glyphs):
     return out
 
 
-def _render_block(img: Image.Image, block: TextBlock):
+def _render_block(img: "Image.Image", block: TextBlock):
+    Image, ImageDraw, _ = _pil()
     glyphs = _warp_positions(block, _glyph_positions_linear(block))
     bx, by = block.position
     rot = block.rotation

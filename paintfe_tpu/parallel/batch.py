@@ -25,22 +25,6 @@ from paintfe_tpu.parallel.pipeline import NotVectorizable, run_batch, trace_scri
 FLUSH_AT = 64  # compute a shape bucket once this many images accumulate
 
 
-def _encode_one(img, output_path, fmt, quality, webp_lossless,
-                tiff_compression):
-    """Encode worker (module-level: must pickle for the process pool).
-    Imports only the codec module — the package __init__ is lazy, so
-    spawn workers never pay the jax import."""
-    from paintfe_tpu.io import codecs as _codecs
-
-    try:
-        _codecs.save_image(img, output_path, fmt, quality=quality,
-                           webp_lossless=webp_lossless,
-                           tiff_compression=tiff_compression)
-        return True, f"  -> {output_path}"
-    except _codecs.CodecError as e:
-        return False, f"  error: {e}"
-
-
 _PROC_POOL = None
 
 
@@ -87,11 +71,10 @@ def run_sharded_batch(inputs: List[pathlib.Path], args, fmt: str,
     t0 = time.time()
 
     # Encode-behind pool, the mirror image of the prefetch decode pool.
-    # Pillow's PNG encoder is GIL-BOUND on this rig (measured: 8x 1 Mpix
-    # encodes, 4 threads, speedup x1.00 — Pillow 12.1), so real overlap
-    # needs PROCESSES for the heavy frames; the spawn workers pay a
-    # one-time package import, so small frames (tests, thumbnails) stay
-    # on a thread pool where the GIL loss is cheaper than the spawn.
+    # Encoders that hold the GIL (Pillow's) need PROCESSES for real
+    # overlap on the heavy frames; the spawn workers pay a one-time import
+    # of the JAX-free codec modules, so small frames (tests, thumbnails)
+    # stay on a thread pool where the GIL loss is cheaper than the spawn.
     # Files are distinct, so order is free; results drain at the end for
     # keep-going accounting.
     import concurrent.futures
@@ -138,13 +121,13 @@ def run_sharded_batch(inputs: List[pathlib.Path], args, fmt: str,
                 except (OSError, ValueError):
                     proc_pool = thread_pool  # restricted platforms
             try:
-                encodes.append(proc_pool.submit(_encode_one, np.asarray(img),
-                                                *eargs))
+                encodes.append(proc_pool.submit(
+                    codecs.encode_job, np.asarray(img), *eargs))
                 return
             except Exception:
                 pass  # pickling/pool failure: fall through to threads
-        encodes.append(thread_pool.submit(_encode_one, np.asarray(img),
-                                          *eargs))
+        encodes.append(thread_pool.submit(
+            codecs.encode_job, np.asarray(img), *eargs))
 
     def drain_encodes():
         for fut in encodes:

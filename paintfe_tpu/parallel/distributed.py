@@ -1,15 +1,15 @@
-"""Multi-host distribution: jax.distributed init + DCN/ICI-aware meshes.
+"""Multi-host distribution: jax.distributed init + host-aware meshes.
 
 The reference has no distributed layer to port (SURVEY §2.9) — this is the
 framework's own scale-out design.  One process per host; each process owns
-its local chips.  Batch work shards two ways:
+its local cards.  Batch work shards two ways:
 
-- **compute**: a global ``Mesh`` over every chip in the job.  Within a
-  host/slice the axis rides ICI; across hosts it rides DCN, so the 2-D
-  ``slice_mesh`` puts the outer ('dcn') axis across processes and the inner
-  ('ici') axis over each process's local chips.  Pure batch parallelism
-  only needs the flat 1-D mesh; spatial halo exchange (parallel.spatial)
-  should stay on the 'ici' axis of the 2-D mesh.
+- **compute**: a global ``Mesh`` over every card in the job.  Within a host
+  the cards talk over NVLink; across hosts over the network, so the 2-D
+  ``slice_mesh`` puts the outer ('hosts') axis across processes and the
+  inner ('local') axis over each process's local cards.  Pure batch
+  parallelism only needs the flat 1-D mesh; spatial halo exchange
+  (parallel.spatial) should stay on the 'local' axis of the 2-D mesh.
 - **I/O**: globbing/decode/encode are per-host; `shard_inputs` deals each
   host a deterministic slice of the input list so hosts never touch the
   same file.
@@ -17,7 +17,7 @@ its local chips.  Batch work shards two ways:
 Wire-up is env-driven so the CLI works unchanged on one host and under a
 launcher: PAINTFE_COORDINATOR (host:port), PAINTFE_NUM_PROCESSES,
 PAINTFE_PROCESS_ID — or the standard cluster auto-detection built into
-``jax.distributed.initialize`` (SLURM / GKE / TPU pods).
+``jax.distributed.initialize`` (SLURM and other cluster launchers).
 """
 
 from __future__ import annotations
@@ -59,7 +59,7 @@ def maybe_initialize(verbose: bool = False) -> bool:
             "partial multi-process wiring: missing " + ", ".join(missing))
     if not coord:
         # no explicit wiring: multi-process only when the environment
-        # (TPU pod / SLURM auto-init) already set one up.  NB this may
+        # (a cluster launcher's auto-init) already set one up.  NB this may
         # initialize the backend — fine, because without the env vars we
         # were never going to call jax.distributed.initialize ourselves.
         return jax.process_count() > 1
@@ -88,18 +88,19 @@ def global_batch_mesh() -> Mesh:
 
 
 def slice_mesh() -> Mesh:
-    """2-D ('dcn', 'ici') mesh: processes (hosts/slices) on the outer axis,
-    each process's local devices on the inner axis.
+    """2-D ('hosts', 'local') mesh: processes on the outer axis, each
+    process's local devices on the inner axis.
 
-    Shardings that communicate per step (halo exchange, reductions inside a
-    model) should map to 'ici'; 'dcn' should only carry batch-level
-    scatter/gather, mirroring the ICI-vs-DCN cost model.
+    Shardings that communicate per step (halo exchange, reductions) should
+    map to 'local'; 'hosts' should only carry batch-level scatter/gather,
+    since links inside a host are much faster than the network between
+    hosts.
     """
     procs = jax.process_count()
     local = jax.local_device_count()
     devs = sorted(jax.devices(), key=lambda d: (d.process_index, d.id))
     grid = np.array(devs).reshape(procs, local)
-    return Mesh(grid, ("dcn", "ici"))
+    return Mesh(grid, ("hosts", "local"))
 
 
 def shard_inputs(inputs: Sequence, process_index: Optional[int] = None,

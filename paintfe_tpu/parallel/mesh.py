@@ -1,10 +1,10 @@
 """Device-mesh helpers.
 
 The reference is a single-process desktop app (SURVEY §2.9): its parallelism
-is rayon rows + wgpu workgroups.  The TPU-native scaling axis is the *batch
-of images*: a 1-D `Mesh(('batch',))` over all devices, images sharded on the
+is rayon rows + wgpu workgroups.  The scaling axis here is the *batch of
+images*: a 1-D `Mesh(('batch',))` over all devices, images sharded on the
 leading axis, XLA SPMD partitioning every fused kernel.  Within-image tiling
-(halo exchange for images that span chips) layers on top later via shard_map.
+(halo exchange for images that span cards) is parallel/spatial.py.
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """Effect pipelines: a script's apply_* chain, traced once and fused by XLA.
 
 The reference's CLI loops over glob inputs serially, re-running the Rhai
-interpreter per image (cli.rs:159, SURVEY §3.1).  TPU-native shape: record
+interpreter per image (cli.rs:159, SURVEY §3.1).  Here: record
 the op sequence once (scripts that never read individual pixels are pure
 op chains), compose it into one jittable image->image function, vmap it over
 the batch, and shard the batch axis over the device mesh.  One compile,
@@ -103,7 +103,7 @@ def _exposure_device(img, ev):
 def _levels_device(img, black, white, gamma):
     """Script-levels evaluated directly per pixel (truncating cast, matching
     scripting.rs:1054-1075).  Formula evaluation == LUT lookup bit-exactly
-    for integer pixels, and avoids TPU-hostile per-pixel table gathers."""
+    for integer pixels."""
     from paintfe_tpu.utils.quant import exact_div
 
     in_black = np.float32(black)

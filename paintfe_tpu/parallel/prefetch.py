@@ -1,9 +1,9 @@
 """Prefetching batch loader: overlap decode IO with device compute.
 
 The reference's CLI loads, processes, and encodes strictly serially
-(cli.rs:155-216).  On TPU the device is idle while the host decodes the
-next PNG; this loader decodes ahead on a thread pool (PIL releases the GIL
-inside its C decoders) and hands the batch runner images in order, a
+(cli.rs:155-216), so the device idles while the host decodes the next
+PNG; this loader decodes ahead on a thread pool (zlib and Pillow release
+the GIL inside their C decoders) and hands the batch runner images in order, a
 bounded number of files ahead of consumption.
 """
 

@@ -1,12 +1,12 @@
-"""Spatial sharding: one huge canvas split across chips.
+"""Spatial sharding: one huge canvas split across devices.
 
 Batch sharding (parallel/pipeline.py) covers the many-images case; this
 module covers the one-giant-image case (the reference clamps documents at
-256 Mpix — src/canvas/tiled_image.rs:14-26 — which exceeds a single chip's
-appetite for fused f32 intermediates).  The image's row axis is sharded
+256 Mpix — src/canvas/tiled_image.rs:14-26 — whose f32 intermediates
+outgrow one card's memory).  The image's row axis is sharded
 over the mesh with `jax.sharding.NamedSharding`; ops stay the ordinary
 jitted functions, and XLA's SPMD partitioner inserts the halo exchanges
-(collective-permutes over ICI) that neighborhood ops like the separable
+(collective-permutes) that neighborhood ops like the separable
 blur need at shard boundaries — no manual communication code, and results
 are bit-identical to the single-device run.
 """
@@ -58,8 +58,7 @@ def process_spatial(img, fn: Callable, mesh: Optional[Mesh] = None):
 @functools.lru_cache(maxsize=64)
 def _process_spatial_fn(fn: Callable, sharding):
     """Cached jit wrapper per (fn, sharding) — a fresh jax.jit per call is
-    a jit cache MISS every call (the CLAUDE.md hard-won rule; ~3 s/frame
-    measured on this rig before _fused_chain_spatial_fn was cached)."""
+    a jit cache MISS every call, which retraces and recompiles)."""
     return jax.jit(fn, out_shardings=sharding)
 
 
@@ -89,17 +88,17 @@ def _fused_chain_spatial_fn(mesh: Mesh, r: int, params_items: tuple):
     """Jitted shard_map program for (mesh, halo radius, params) — cached so
     repeated calls are jit cache HITS (a fresh shard_map closure per call
     would retrace + relower every frame)."""
-    from paintfe_tpu.ops.fused_chain import fused_chain_kernel
+    from paintfe_tpu.ops.fused_chain import fused_chain
 
     n = mesh.devices.size
     params = dict(params_items)
 
     def local(block, ov_block):
         if r == 0:  # blur has no taps (sigma ~ 0): pointwise, no halo
-            return fused_chain_kernel(block, ov_block, **params)
+            return fused_chain(block, ov_block, **params)
         extended = _halo_extend(block, r, n)
         ov_ext = jnp.pad(ov_block, ((r, r), (0, 0), (0, 0)))
-        out = fused_chain_kernel(extended, ov_ext, **params)
+        out = fused_chain(extended, ov_ext, **params)
         return out[r:-r]
 
     fn = _shard_map(local, mesh, (P("rows", None, None),) * 2,
@@ -110,8 +109,8 @@ def _fused_chain_spatial_fn(mesh: Mesh, r: int, params_items: tuple):
 def grid_mesh(n_batch: int, n_rows: int,
               devices: Optional[Sequence] = None) -> Mesh:
     """2-D mesh ('batch', 'rows'): data parallelism over images x spatial
-    parallelism within each image — the production layout for batches of
-    canvases too large for one chip's fused-f32 appetite."""
+    parallelism within each image, for batches of canvases whose f32
+    intermediates outgrow one card."""
     devices = list(devices) if devices is not None else jax.devices()
     assert len(devices) >= n_batch * n_rows, (
         f"need {n_batch * n_rows} devices, have {len(devices)}")
@@ -124,10 +123,9 @@ def _fused_chain_grid_fn(mesh: Mesh, r: int, params_items: tuple):
     """Jitted shard_map program over the 2-D ('batch', 'rows') mesh: each
     device holds a [B/nb, H/nr, W, 4] block, exchanges its r boundary rows
     with its 'rows' neighbors (ppermute moves the whole local batch slab
-    in one collective), and runs the Pallas mega-kernel per local image
-    (lax.map — images are processed sequentially per device, which is the
-    natural schedule; parallelism comes from the mesh)."""
-    from paintfe_tpu.ops.fused_chain import fused_chain_kernel
+    in one collective), and runs the headline chain vmapped over its
+    local images."""
+    from paintfe_tpu.ops.fused_chain import fused_chain
 
     n_rows = mesh.shape["rows"]
     params = dict(params_items)
@@ -148,12 +146,11 @@ def _fused_chain_grid_fn(mesh: Mesh, r: int, params_items: tuple):
             ov_ext = jnp.concatenate(
                 [jnp.zeros_like(top), ov_blk, jnp.zeros_like(bottom)], axis=1)
 
-        def one(pair):
-            img, ov = pair
-            out = fused_chain_kernel(img, ov, **params)
+        def one(img, ov):
+            out = fused_chain(img, ov, **params)
             return out[r:-r] if r else out
 
-        return jax.lax.map(one, (ext, ov_ext))
+        return jax.vmap(one)(ext, ov_ext)
 
     fn = _shard_map(local, mesh,
                     (P("batch", "rows", None, None),) * 2,
@@ -164,8 +161,8 @@ def _fused_chain_grid_fn(mesh: Mesh, r: int, params_items: tuple):
 def fused_chain_grid(imgs, overlays, mesh: Mesh, **params):
     """The headline fused chain over a batch of images on the 2-D
     ('batch', 'rows') mesh: images shard over 'batch', each image's rows
-    over 'rows' with ICI halo exchange.  Bit-identical to running
-    fused_chain_kernel per image on one device.  B must be padded to a
+    over 'rows' with a ppermute halo exchange.  Bit-identical to running
+    fused_chain per image on one device.  B must be padded to a
     multiple of the batch axis by the caller (or pass B divisible)."""
     from paintfe_tpu.ops.filters import gaussian_kernel
 
@@ -180,9 +177,9 @@ def fused_chain_grid(imgs, overlays, mesh: Mesh, **params):
         raise ValueError(f"batch {b} not divisible by mesh batch axis {nb}")
     pad = (-h) % nr
     if (h + pad) // nr < r:
-        from paintfe_tpu.ops.fused_chain import fused_chain_kernel
+        from paintfe_tpu.ops.fused_chain import fused_chain
 
-        outs = [fused_chain_kernel(imgs[i], overlays[i], **params)
+        outs = [fused_chain(imgs[i], overlays[i], **params)
                 for i in range(b)]
         return jnp.stack(outs, axis=0)
     if pad:
@@ -198,24 +195,17 @@ def fused_chain_grid(imgs, overlays, mesh: Mesh, **params):
 
 
 def _shard_map(local, mesh, in_specs, out_specs):
-    """shard_map with the replication checker disabled (pallas out_shape
-    carries no vma info); kwarg renamed check_rep -> check_vma across jax
-    versions."""
-    try:
-        from jax import shard_map  # jax >= 0.8
-    except ImportError:  # pragma: no cover - older jax
-        from jax.experimental.shard_map import shard_map
+    """shard_map with the varying-manual-axes checker off: the edge shards'
+    jnp.where between a ppermuted halo and their own replicated edge rows
+    mixes values the checker would have to prove device-varying."""
+    from jax import shard_map
 
-    try:
-        return shard_map(local, mesh=mesh, in_specs=in_specs,
-                         out_specs=out_specs, check_vma=False)
-    except TypeError:  # pragma: no cover - older jax
-        return shard_map(local, mesh=mesh, in_specs=in_specs,
-                         out_specs=out_specs, check_rep=False)
+    return shard_map(local, mesh=mesh, in_specs=in_specs,
+                     out_specs=out_specs, check_vma=False)
 
 
 def _halo_extend(block, r, n):
-    """Exchange r boundary rows with mesh neighbors over ICI (ppermute);
+    """Exchange r boundary rows with mesh neighbors (ppermute);
     edge shards replicate their own edge rows (matches single-device
     edge-pad semantics)."""
     idx = jax.lax.axis_index("rows")
@@ -229,24 +219,19 @@ def _halo_extend(block, r, n):
 
 
 @functools.lru_cache(maxsize=32)
-def _median_spatial_fn(mesh: Mesh, r: int, interpret: bool):
-    """Jitted shard_map program for the tiled-median Pallas kernel: each
-    shard halo-extends its row block by r (ppermute over ICI) and runs the
-    VMEM median kernel (ops/pallas_kernels.median_pallas) on the extended
-    block.  The kernel's own edge-replicate padding then only affects the
-    halo rows, which are cropped — so results are bit-identical to the
-    single-device kernel.  Cached per (mesh, r): the kernel's
-    scalar-prefetched dynamic-offset DMA makes it the most
-    partition-fragile pattern in the repo; this program certifies it under
-    a real mesh partitioner."""
-    from paintfe_tpu.ops.pallas_kernels import median_pallas
+def _median_spatial_fn(mesh: Mesh, r: int, hb: int, w: int):
+    """Jitted shard_map program for the window median: each shard
+    halo-extends its row block by r (ppermute) and runs the median network
+    (ops/filters._median_fn) on the extended block.  The network's own
+    edge-replicate padding then only affects the halo rows, which are
+    cropped, so results are bit-identical to the single-device op."""
+    from paintfe_tpu.ops.filters import _median_fn
 
     n = mesh.devices.size
+    median = _median_fn(r, hb + 2 * r, w)
 
     def local(block):
-        extended = _halo_extend(block, r, n)
-        out = median_pallas(extended, r, interpret=interpret)
-        return out[r:-r]
+        return median(_halo_extend(block, r, n))[r:-r]
 
     fn = _shard_map(local, mesh, (P("rows", None, None),),
                     P("rows", None, None))
@@ -255,55 +240,46 @@ def _median_spatial_fn(mesh: Mesh, r: int, interpret: bool):
 
 def median_spatial(img, r: int, mesh: Optional[Mesh] = None):
     """Window median of one row-sharded image on the mesh; bit-identical
-    to ops/pallas_kernels.median_pallas single-device."""
-    from paintfe_tpu.ops.pallas_kernels import median_pallas
+    to ops/filters.median single-device."""
+    from paintfe_tpu.ops.filters import median
 
     mesh = mesh if mesh is not None else rows_mesh()
     n = mesh.devices.size
-    interpret = jax.default_backend() != "tpu"
     img = jnp.asarray(img, jnp.uint8)
-    h = img.shape[0]
-    if r <= 0 or (h + ((-h) % n)) // n < r:
-        # r == 0 is the identity window (no halo, and the [r:-r] crop
-        # would be empty); shard blocks shorter than the halo radius
-        # can't source their neighbors' r rows from one ppermute
-        return median_pallas(img, r, interpret=interpret)
+    if r <= 0:
+        return img  # the identity window
+    h, w = img.shape[0], img.shape[1]
+    if (h + ((-h) % n)) // n < r:
+        # shard blocks shorter than the halo radius can't source their
+        # neighbors' r rows from one ppermute
+        return median(img, r)
     pad = (-h) % n
     if pad:
         img = jnp.concatenate([img, jnp.repeat(img[-1:], pad, axis=0)], axis=0)
-    sharding = rows_sharding(mesh)
-    placed = jax.device_put(img, sharding)
-    out = _median_spatial_fn(mesh, int(r), interpret)(placed)
+    placed = jax.device_put(img, rows_sharding(mesh))
+    out = _median_spatial_fn(mesh, int(r), (h + pad) // n, w)(placed)
     return out[:h]
 
 
+def _gather(src, sx, sy, mode: str):
+    """Bilinear u8 gather at absolute source coordinates: "zero" is the
+    displacement warp's transparent-outside sampler, "clamp" the distort
+    effects' edge-clamped one."""
+    from paintfe_tpu.ops.effects.distort import sample_bilinear
+    from paintfe_tpu.ops.transform import _bilinear_gather_zero
+    from paintfe_tpu.utils.quant import round_u8
+
+    if mode == "zero":
+        return _bilinear_gather_zero(src, sx, sy, src.shape[0], src.shape[1])[0]
+    return round_u8(sample_bilinear(src, sx, sy))
+
+
 @functools.lru_cache(maxsize=32)
-def _warp_spatial_fn(mesh: Mesh, wh: int, s_sweep: int, hb: int, w: int,
-                     src_h: int, src_w: int, mode: str, interpret: bool):
-    """Jitted shard_map program for the warp sweep-gather kernel: the
-    source image is replicated (a warp gathers from arbitrary rows, so
-    locality can't be assumed), the displacement field is row-sharded, and
-    each shard plans its own DMA windows (`_window_params` on its block)
-    and launches the Pallas kernel with the fleet-wide (wh, s) buckets.
-    Per-shard spans are subsets of the full-field spans, so buckets chosen
-    by a full-field plan are feasible on every shard."""
-    from paintfe_tpu.ops import warp_kernel as wk
-
-    hp = wk._round_up(hb, wk.TH)
-    wp = wk._round_up(w, wk.TW)
-    ww = wk._window_width(s_sweep)
-    gh, gw = hp // wk.TH, wp // wk.TW
-    kernel = wk._make_kernel(wh, s_sweep, wk.TH, wk.TW, ww, src_h, src_w,
-                             gw, mode)
-
-    def local(src_u8, sxb, syb):
-        sxp = jnp.pad(sxb, ((0, hp - hb), (0, wp - w)))
-        syp = jnp.pad(syb, ((0, hp - hb), (0, wp - w)))
-        oy, ox, _, _ = wk._window_params(sxp, syp, src_h, src_w, hb, w)
-        return wk._launch(kernel, src_u8, sxp, syp, oy, ox, wh, ww, gh, gw,
-                          hp, wp, hb, w, interpret)
-
-    fn = _shard_map(local, mesh,
+def _warp_spatial_fn(mesh: Mesh, mode: str):
+    """Jitted shard_map program for the warp gather: the source image is
+    replicated (a warp gathers from arbitrary rows, so locality can't be
+    assumed) and the coordinate field is row-sharded."""
+    fn = _shard_map(lambda src, sx, sy: _gather(src, sx, sy, mode), mesh,
                     (P(None, None, None), P("rows", None), P("rows", None)),
                     P("rows", None, None))
     return jax.jit(fn)
@@ -311,56 +287,35 @@ def _warp_spatial_fn(mesh: Mesh, wh: int, s_sweep: int, hb: int, w: int,
 
 def warp_spatial(src, sx, sy, mode: str = "zero",
                  mesh: Optional[Mesh] = None):
-    """Bilinear warp gather with the displacement field row-sharded over
-    the mesh (ops/warp_kernel.gather_bilinear_u8 semantics).  Returns None
-    when the field is infeasible for the sweep kernel (same contract as
-    the single-device path)."""
-    from paintfe_tpu.ops import warp_kernel as wk
-
+    """Bilinear warp gather with the coordinate field row-sharded over the
+    mesh; bit-identical to the single-device gather (`_gather`)."""
     mesh = mesh if mesh is not None else rows_mesh()
     n = mesh.devices.size
-    interpret = jax.default_backend() != "tpu"
     src_u8 = jnp.asarray(src, jnp.uint8)
-    src_h, src_w = src_u8.shape[0], src_u8.shape[1]
     sxf = jnp.asarray(sx, jnp.float32)
     syf = jnp.asarray(sy, jnp.float32)
-    h, w = sxf.shape
-
-    planned = wk.plan(sxf, syf, src_h, src_w)
-    if planned is None:
-        return None
-    _, _, wh, s_sweep = planned
-
-    # Pad H to a multiple of n * TH so every shard-local tile coincides
-    # with a full-field tile (same absolute row groups) — per-shard spans
-    # are then exactly the planned spans and the buckets stay feasible.
-    # Pad rows replicate the last row's taps (already included in the
-    # plan), never new geometry.
-    pad = (-h) % (n * wk.TH)
-    if pad:
-        sxf = jnp.concatenate([sxf, jnp.repeat(sxf[-1:], pad, axis=0)],
-                              axis=0)
-        syf = jnp.concatenate([syf, jnp.repeat(syf[-1:], pad, axis=0)],
-                              axis=0)
-    hb = (h + pad) // n
+    h = sxf.shape[0]
+    pad = (-h) % n
+    if pad:  # pad rows replicate the last row's coordinates, then crop
+        sxf = jnp.concatenate([sxf, jnp.repeat(sxf[-1:], pad, axis=0)], axis=0)
+        syf = jnp.concatenate([syf, jnp.repeat(syf[-1:], pad, axis=0)], axis=0)
     sharding = NamedSharding(mesh, P("rows", None))
-    fn = _warp_spatial_fn(mesh, wh, s_sweep, hb, w, src_h, src_w, mode,
-                          interpret)
-    out = fn(jax.device_put(src_u8, NamedSharding(mesh, P(None, None, None))),
-             jax.device_put(sxf, sharding), jax.device_put(syf, sharding))
+    out = _warp_spatial_fn(mesh, mode)(
+        jax.device_put(src_u8, NamedSharding(mesh, P(None, None, None))),
+        jax.device_put(sxf, sharding), jax.device_put(syf, sharding))
     return out[:h]
 
 
 def fused_chain_spatial(img, overlay, mesh: Optional[Mesh] = None, **params):
-    """The headline fused chain (ops/fused_chain.fused_chain_kernel) over a
-    row-sharded mesh: each shard exchanges its r boundary rows with its
-    neighbors over ICI (jax.lax.ppermute), runs the Pallas mega-kernel on
-    its halo-extended block, and crops — the scaling-book recipe (shard,
-    exchange halos, compute locally) applied to an image kernel.  Boundary
-    shards replicate their own edge rows where no neighbor exists, so the
-    result is bit-identical to the single-device kernel.
+    """The headline chain (ops/fused_chain.fused_chain) over a row-sharded
+    mesh: each shard exchanges its r boundary rows with its neighbors
+    (jax.lax.ppermute), runs the chain on its halo-extended block, and
+    crops.  Boundary shards replicate their own edge rows where no
+    neighbor exists, so the result is bit-identical to the single-device
+    chain.
     """
     from paintfe_tpu.ops.filters import gaussian_kernel
+    from paintfe_tpu.ops.fused_chain import fused_chain
 
     mesh = mesh if mesh is not None else rows_mesh()
     n = mesh.devices.size
@@ -372,10 +327,8 @@ def fused_chain_spatial(img, overlay, mesh: Optional[Mesh] = None, **params):
     h = img.shape[0]
     if (h + ((-h) % n)) // n < r:
         # shard blocks shorter than the blur radius can't fill their halo
-        # from one neighbor ppermute; run the single-device kernel
-        from paintfe_tpu.ops.fused_chain import fused_chain_kernel
-
-        return fused_chain_kernel(img, overlay, **params)
+        # from one neighbor ppermute; run the single-device chain
+        return fused_chain(img, overlay, **params)
     pad = (-h) % n
     if pad:
         img = jnp.concatenate([img, jnp.repeat(img[-1:], pad, axis=0)], axis=0)

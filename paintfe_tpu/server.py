@@ -2,7 +2,7 @@
 
 The reference is a desktop app; its CLI pays full startup per invocation
 (cli.rs:12-13 is explicitly single-shot).  For production batch serving on
-TPU the expensive parts — backend init, jit compilation, traced script
+an accelerator the expensive parts — backend init, jit compilation, traced script
 chains — must be paid once and reused, so this daemon accepts newline-
 delimited JSON jobs over a TCP socket and processes them with persistent
 compile caches:

@@ -1,57 +1,56 @@
 """Persistent XLA compilation-cache wiring.
 
 The reference CLI is a native binary with zero warmup (src/cli.rs:105-216);
-a fresh JAX process instead re-jits every program it touches (measured
-round 3: 37 s on CPU, >120 s on the TPU backend for the first file of a
-batch).  Pointing XLA's persistent cache at a per-user directory makes
-every invocation after the first load serialized executables from disk,
-so a cold CLI process reaches the reference's "no warmup" behavior up to
-the (fast) cache-deserialization cost.
+a fresh JAX process instead re-jits every program it touches.  Pointing
+XLA's persistent cache at a fixed directory makes every invocation after
+the first load serialized executables from disk, so a cold CLI process
+reaches the reference's "no warmup" behavior up to the cache-load cost.
 
-Enabled automatically by the CLI and the serving daemon.  Override the
-location with $PAINTFE_COMPILE_CACHE; disable with
-PAINTFE_COMPILE_CACHE=off.
+Enabled automatically by the CLI and the serving daemon.  Where
+$JAX_COMPILATION_CACHE_DIR is set, JAX already uses that directory and
+nothing here overrides it; otherwise the cache lives in `.xla_cache/` at
+the root of the checkout (the path is part of each entry's key, so it must
+not move between runs).  PAINTFE_NO_COMPILE_CACHE=1 turns it off.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Optional
+import pathlib
+from typing import Mapping, Optional
 
-_DISABLE_VALUES = {"", "0", "off", "none", "disabled"}
+CHECKOUT_CACHE_DIR = pathlib.Path(__file__).resolve().parents[2] / ".xla_cache"
 
 _stats = {"hits": 0, "misses": 0, "saved_sec": 0.0}
 _registered = False
 
 
-def enable_persistent_cache(cache_dir: Optional[str] = None) -> Optional[str]:
-    """Route every jit compile through an on-disk cache; returns the cache
-    directory in use, or None when disabled.
+def resolve_cache_dir(environ: Mapping[str, str] = os.environ) -> Optional[str]:
+    """The directory the persistent cache should use, or None when off:
+    $JAX_COMPILATION_CACHE_DIR when set, else the fixed in-checkout
+    directory."""
+    if environ.get("PAINTFE_NO_COMPILE_CACHE", "") not in ("", "0"):
+        return None
+    return environ.get("JAX_COMPILATION_CACHE_DIR") or str(CHECKOUT_CACHE_DIR)
 
-    Resolution order: explicit argument > $PAINTFE_COMPILE_CACHE >
-    a directory JAX was already configured with (e.g. via
-    $JAX_COMPILATION_CACHE_DIR) > `<user config dir>/xla_cache`.
+
+def enable_persistent_cache() -> Optional[str]:
+    """Route every jit compile through the on-disk cache; returns the cache
+    directory in use, or None when disabled or unwritable.
 
     Must run before the programs of interest first compile (config changes
-    only affect subsequent compiles); the CLI calls it at startup.
-    """
+    only affect subsequent compiles); the CLI calls it at startup."""
     import jax
 
+    cache_dir = resolve_cache_dir()
     if cache_dir is None:
-        env = os.environ.get("PAINTFE_COMPILE_CACHE")
-        if env is not None and env.strip().lower() in _DISABLE_VALUES:
-            return None
-        cache_dir = env or jax.config.jax_compilation_cache_dir
-    if not cache_dir:
-        from paintfe_tpu.utils.settings import default_config_dir
-
-        cache_dir = str(default_config_dir() / "xla_cache")
-    cache_dir = str(cache_dir)
+        return None
     try:
         os.makedirs(cache_dir, exist_ok=True)
     except OSError:
         return None  # unwritable location: run uncached rather than fail
-    jax.config.update("jax_compilation_cache_dir", cache_dir)
+    if cache_dir != jax.config.jax_compilation_cache_dir:
+        jax.config.update("jax_compilation_cache_dir", cache_dir)
     # Cache everything: a CLI process compiles each program exactly once,
     # so persisting even sub-second compiles is pure win next invocation
     # (the defaults skip entries cheaper than 1 s).

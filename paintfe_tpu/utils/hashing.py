@@ -79,8 +79,7 @@ def turbulence_2d(x, y, seed, octaves: int, roughness: float):
     # TRUE division like the reference (a bare `/` by this compile-time
     # constant gets rewritten by XLA into multiply-by-reciprocal — 1 ulp
     # off for non-power-of-two sums, e.g. octaves=2 -> 1.5; measured
-    # 1297/4096 sample points off); exact_div barriers the divisor and
-    # Newton-refines on TPU
+    # 1297/4096 sample points off); exact_div barriers the divisor
     from paintfe_tpu.utils.quant import exact_div
 
     return exact_div(total, float(max_amplitude))

@@ -2,7 +2,7 @@
 
 Behavioral contract: the reference's observability surface (SURVEY §5) —
 per-file wall clock in CLI verbose (cli.rs:164), FPS ring, script
-elapsed_ms — upgraded to the TPU-native equivalents: stage timers that
+elapsed_ms — upgraded to device-aware equivalents: stage timers that
 block on device work, and optional jax.profiler traces.
 """
 

@@ -193,17 +193,12 @@ def test_lut_composition_fuses_chain():
 
 
 def test_direct_builders_are_cached():
-    """The jitted direct-formula builders must be lru-cached (CLAUDE.md:
-    a fresh jit closure per call is a cache MISS every call)."""
-    from paintfe_tpu.ops import adjustments as adj
+    """The jitted per-shape builders must be lru-cached (CLAUDE.md: a fresh
+    jit closure per call is a cache MISS every call)."""
     from paintfe_tpu.ops import filters as flt
 
-    assert adj._levels_direct_fn(0.0, 255.0, 1.0, 0.0, 255.0) is \
-        adj._levels_direct_fn(0.0, 255.0, 1.0, 0.0, 255.0)
-    key = ((((0.0, 0.0), (255.0, 255.0)), True),)
-    assert adj._curves_direct_fn(key) is adj._curves_direct_fn(key)
-    stops = ((0.0, (0.0, 0.0, 0.0, 255.0)), (1.0, (255.0, 255.0, 255.0, 255.0)))
-    assert adj._gradient_map_stops_fn(stops) is adj._gradient_map_stops_fn(stops)
-    lv = ((0.0, 255.0, 1.0, 0.0, 255.0),) * 4
-    assert adj._levels_per_channel_fn(lv) is adj._levels_per_channel_fn(lv)
     assert flt._median_fn(1, 16, 16) is flt._median_fn(1, 16, 16)
+    assert flt._gaussian_fn(2.0, 16, 16) is flt._gaussian_fn(2.0, 16, 16)
+    assert flt._box_fn(2, 16, 16) is flt._box_fn(2, 16, 16)
+    assert flt._reduce_noise_fn(30.0, 2, 16, 16) is \
+        flt._reduce_noise_fn(30.0, 2, 16, 16)

@@ -13,15 +13,15 @@ import subprocess
 import sys
 
 import numpy as np
+import pytest
 
 from paintfe_tpu.io import codecs
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
 
-# The session environment may force-append a hardware platform, so (like
-# conftest.py) the subprocess pins the CPU backend via jax.config before
-# any backend initializes, then runs the real CLI main().
+# Like conftest.py, the subprocess pins the CPU backend via jax.config
+# before any backend initializes, then runs the real CLI main().
 _LAUNCHER = (
     "import jax; jax.config.update('jax_platforms', 'cpu');"
     "import sys; from paintfe_tpu.cli import main;"
@@ -40,7 +40,8 @@ def _run_cli(tmp_path, cache_dir, tag):
     script.write_text("apply_blur(2.0);")
     out = tmp_path / f"out_{tag}.png"
     env = dict(os.environ)
-    env["PAINTFE_COMPILE_CACHE"] = str(cache_dir)
+    env.pop("PAINTFE_NO_COMPILE_CACHE", None)
+    env["JAX_COMPILATION_CACHE_DIR"] = str(cache_dir)
     env["PYTHONPATH"] = str(REPO) + os.pathsep + env.get("PYTHONPATH", "")
     proc = subprocess.run(
         [sys.executable, "-c", _LAUNCHER, "-i", str(src),
@@ -73,7 +74,43 @@ def test_cli_populates_and_hits_persistent_cache(tmp_path):
 
 
 def test_cache_disabled_via_env(tmp_path, monkeypatch):
-    monkeypatch.setenv("PAINTFE_COMPILE_CACHE", "off")
+    monkeypatch.setenv("PAINTFE_NO_COMPILE_CACHE", "1")
     from paintfe_tpu.utils import compile_cache
 
     assert compile_cache.enable_persistent_cache() is None
+
+
+@pytest.mark.parametrize("environ,expected", [
+    ({"JAX_COMPILATION_CACHE_DIR": "/some/dir"}, "/some/dir"),
+    ({}, "checkout"),
+    ({"JAX_COMPILATION_CACHE_DIR": ""}, "checkout"),
+    ({"PAINTFE_NO_COMPILE_CACHE": "1",
+      "JAX_COMPILATION_CACHE_DIR": "/some/dir"}, None),
+    ({"PAINTFE_NO_COMPILE_CACHE": "0"}, "checkout"),
+])
+def test_cache_dir_resolution(environ, expected):
+    """$JAX_COMPILATION_CACHE_DIR wins whenever it is set; otherwise the
+    cache sits at a fixed path inside the checkout, listed in .gitignore."""
+    from paintfe_tpu.utils import compile_cache
+
+    got = compile_cache.resolve_cache_dir(environ)
+    if expected == "checkout":
+        assert got == str(REPO / ".xla_cache")
+        ignored = (REPO / ".gitignore").read_text().split()
+        assert ".xla_cache/" in ignored
+    else:
+        assert got == expected
+
+
+def test_cli_caches_only_in_the_env_directory(tmp_path):
+    """With JAX_COMPILATION_CACHE_DIR set, the CLI's entries land there and
+    the in-checkout default directory gains nothing."""
+    from paintfe_tpu.utils import compile_cache
+
+    default = compile_cache.CHECKOUT_CACHE_DIR
+    before = set(_cache_files(default)) if default.exists() else set()
+    cache = tmp_path / "env_cache"
+    _run_cli(tmp_path, cache, "env")
+    assert _cache_files(cache)
+    after = set(_cache_files(default)) if default.exists() else set()
+    assert after == before

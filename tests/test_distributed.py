@@ -66,10 +66,10 @@ assert jax.process_count() == 2
 assert jax.local_device_count() == 4
 assert jax.device_count() == 8
 
-# 2-D DCN x ICI mesh shape and axis placement
+# 2-D hosts x local mesh shape and axis placement
 m = distributed.slice_mesh()
 assert m.devices.shape == (2, 4)
-assert m.axis_names == ("dcn", "ici")
+assert m.axis_names == ("hosts", "local")
 # every device in row p belongs to process p
 for p in range(2):
     assert all(d.process_index == p for d in m.devices[p])

@@ -315,16 +315,16 @@ def _write_png16_filtered(path, pixels: np.ndarray, filters):
     import struct as _struct
     import zlib as _zlib
 
-    from paintfe_tpu.io.deep_export import _png_chunk
+    from paintfe_tpu.io.png import chunk
 
     h, w = pixels.shape[:2]
     raw = _forward_filter_png16(pixels, filters)
     ihdr = _struct.pack(">IIBBBBB", w, h, 16, 6, 0, 0, 0)
     with open(path, "wb") as fh:
         fh.write(b"\x89PNG\r\n\x1a\n")
-        fh.write(_png_chunk(b"IHDR", ihdr))
-        fh.write(_png_chunk(b"IDAT", _zlib.compress(raw, 6)))
-        fh.write(_png_chunk(b"IEND", b""))
+        fh.write(chunk(b"IHDR", ihdr))
+        fh.write(chunk(b"IDAT", _zlib.compress(raw, 6)))
+        fh.write(chunk(b"IEND", b""))
 
 
 @pytest.mark.parametrize("filters", [(0,), (1,), (2,), (3,), (4,),
@@ -334,6 +334,7 @@ def test_png16_adaptive_filters_native_matches_oracle(tmp_path, filters,
     """Foreign 16-bit PNGs use filters 1-4; the native defilter and the
     Python oracle must reconstruct identical pixels."""
     from paintfe_tpu.io import deep_export as de
+    from paintfe_tpu.io import png
 
     rng = np.random.default_rng(sum(filters) + 11)
     u16 = rng.integers(0, 65536, (10, 13, 4), np.uint16)
@@ -342,7 +343,7 @@ def test_png16_adaptive_filters_native_matches_oracle(tmp_path, filters,
     native_out = de.read_png16(path)
     np.testing.assert_array_equal(native_out, u16)
     # force the Python oracle and compare
-    monkeypatch.setattr(de, "_png_defilter_native", lambda *a: None)
+    monkeypatch.setattr(png, "_defilter_native", lambda *a: None)
     np.testing.assert_array_equal(de.read_png16(path), u16)
 
 

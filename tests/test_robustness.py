@@ -37,13 +37,30 @@ def test_pfe_roundtrip_fuzz(tmp_path):
 
 
 def test_nrbf_truncated_streams_error_cleanly():
+    import struct as _st
+
     from paintfe_tpu.io.nrbf import NrbfError, NrbfReader
 
-    good = open("/root/reference/tests/fixtures/pdn/layers-opacity-additive.pdn", "rb").read()
-    hlen = good[4] | (good[5] << 8) | (good[6] << 16)
-    body_off = 7 + hlen + 2
+    def lp(s):
+        b = s.encode()
+        return bytes([len(b)]) + b
+
+    # a layer-list-shaped stream: one library, then three classes whose
+    # String members each hold a BinaryObjectString record
+    body = b"\x00" + _st.pack("<iiii", 1, -1, 1, 0) + b"\x0c" + _st.pack(
+        "<i", 1) + lp("PaintDotNet.Data")
+    for k, name in enumerate(("Document", "LayerList", "BitmapLayer")):
+        body += (b"\x05" + _st.pack("<i", k + 1) + lp(name)
+                 + _st.pack("<i", 2) + lp("name") + lp("blendMode")
+                 + b"\x01\x01" + _st.pack("<i", 1)
+                 + _nrbf_prim_string(100 + 2 * k, f"{name} layer title")
+                 + _nrbf_prim_string(101 + 2 * k, "Normal"))
+    body += b"\x0b"
+    body_off = 7
+    good = b"PDN3" + bytes([0, 0, 0]) + body
     full = NrbfReader(good, body_off).parse()
-    assert full.end_pos is not None
+    assert full.end_pos == len(good)
+    assert full.find_instances("BitmapLayer")[0].get("blendMode") == "Normal"
     # every truncation point must raise NrbfError/ValueError, never hang/crash
     for cut in (body_off + 3, body_off + 50, full.end_pos - 10):
         with pytest.raises((NrbfError, ValueError, IndexError)):

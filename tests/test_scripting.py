@@ -535,7 +535,7 @@ def test_string_method_tail():
         print_line(`${s.sub_string(6, 2)}`);
         print_line(`${s.sub_string(6)}`);
         print_line(`${s.starts_with("Paint")} ${s.ends_with("FE")}`);
-        s.replace("FE", "TPU");
+        s.replace("FE", "GPU");
         print_line(s);
         s.make_upper();
         print_line(s);
@@ -547,7 +547,7 @@ def test_string_method_tail():
     )
     assert console == [
         "[Paint FE]", "6", "FE", "FE", "true true",
-        "Paint TPU", "PAINT TPU", "PAINT", "3 b",
+        "Paint GPU", "PAINT GPU", "PAINT", "3 b",
     ]
 
 

@@ -53,7 +53,7 @@ def test_composite_spatial_matches():
 
 
 def test_fused_chain_spatial_matches_single_device():
-    """The Pallas mega-kernel under shard_map: ppermute halo exchange must
+    """The headline chain under shard_map: ppermute halo exchange must
     reproduce the single-device result bit-exactly, including edge shards'
     replicated halos and ragged heights."""
     from paintfe_tpu.ops.fused_chain import fused_chain
@@ -68,27 +68,23 @@ def test_fused_chain_spatial_matches_single_device():
 
 
 def test_median_spatial_matches_single_device():
-    """The tiled-median Pallas kernel (scalar-prefetched dynamic-offset
-    DMA) under shard_map: halo-extended blocks must reproduce the
-    single-device kernel bit-exactly, including ragged heights where the
-    kernel's own edge-replicate pad interacts with the halo rows."""
-    from paintfe_tpu.ops.pallas_kernels import median_pallas
-
+    """The median network under shard_map: halo-extended blocks must
+    reproduce the single-device op bit-exactly, including ragged heights
+    where the network's own edge-replicate pad interacts with the halo
+    rows."""
     rng = np.random.default_rng(7)
     for h in (64, 61):
         img = rng.integers(0, 256, (h, 40, 4), np.uint8)
-        ref = np.asarray(median_pallas(img, 2))
+        ref = np.asarray(filters.median(img, 2))
         out = np.asarray(spatial.median_spatial(img, 2, _mesh8()))
         np.testing.assert_array_equal(ref, out)
 
 
 @pytest.mark.parametrize("mode", ["zero", "clamp"])
 def test_warp_spatial_matches_single_device(mode):
-    """The warp sweep-gather kernel under shard_map: source replicated,
-    displacement field row-sharded, per-shard DMA window planning with the
-    fleet-wide buckets.  Must be bit-identical to the single-device kernel
+    """The warp gather under shard_map: source replicated, coordinate
+    field row-sharded.  Must be bit-identical to the single-device gather
     for both boundary semantics."""
-    from paintfe_tpu.ops.warp_kernel import gather_bilinear_u8
 
     rng = np.random.default_rng(9)
     h, w = 61, 50
@@ -97,7 +93,8 @@ def test_warp_spatial_matches_single_device(mode):
     # swirl-ish field with out-of-bounds excursions at the corners
     sx = xx + 3.0 * np.sin(yy / 9.0) - 1.5
     sy = yy + 2.0 * np.cos(xx / 7.0) + 0.75
-    ref = np.asarray(gather_bilinear_u8(src, sx, sy, mode=mode))
+    ref = np.asarray(jax.jit(
+        lambda a, b, c: spatial._gather(a, b, c, mode))(src, sx, sy))
     out = np.asarray(spatial.warp_spatial(src, sx, sy, mode=mode,
                                           mesh=_mesh8()))
     np.testing.assert_array_equal(ref, out)
@@ -105,10 +102,10 @@ def test_warp_spatial_matches_single_device(mode):
 
 @pytest.mark.slow
 def test_fused_chain_spatial_bench_shape():
-    """VERDICT r2 weak: the small-shape tests above can't catch tiling or
-    halo bugs that only appear at the real bench geometry.  Full 4K
-    (2160x3840) through the shard_map+ppermute mega-kernel on the 8-device
-    mesh must be bit-identical to the single-device kernel."""
+    """The small-shape tests above can't catch halo bugs that only appear
+    at the real bench geometry.  Full 4K (2160x3840) through the
+    shard_map+ppermute chain on the 8-device mesh must be bit-identical to
+    the single-device chain."""
     from paintfe_tpu.ops.fused_chain import fused_chain
     from paintfe_tpu.parallel.spatial import fused_chain_spatial
 
@@ -123,10 +120,9 @@ def test_fused_chain_spatial_bench_shape():
 
 def test_spatial_tiny_image_fallback():
     """Images whose shard blocks would be shorter than the halo radius
-    fall back to the single-device kernel (one ppermute can't source a
-    full halo) — results must still match exactly."""
+    fall back to the single-device op (one ppermute can't source a full
+    halo) — results must still match exactly."""
     from paintfe_tpu.ops.fused_chain import fused_chain
-    from paintfe_tpu.ops.pallas_kernels import median_pallas
 
     rng = np.random.default_rng(13)
     img = rng.integers(0, 256, (20, 40, 4), np.uint8)  # 20/8 = 2.5 < r=6
@@ -136,7 +132,7 @@ def test_spatial_tiny_image_fallback():
     np.testing.assert_array_equal(ref, out)
 
     img2 = rng.integers(0, 256, (12, 40, 4), np.uint8)  # 12/8 = 1.5 < r=2
-    ref2 = np.asarray(median_pallas(img2, 2))
+    ref2 = np.asarray(filters.median(img2, 2))
     out2 = np.asarray(spatial.median_spatial(img2, 2, _mesh8()))
     np.testing.assert_array_equal(ref2, out2)
 
@@ -145,7 +141,7 @@ def test_fused_chain_grid_2d_mesh():
     """dp x sp: batch of images on the 2-D ('batch', 'rows') mesh — each
     image's rows halo-exchange within its 'rows' submesh while images
     spread over 'batch'.  Bit-identical to the per-image single-device
-    kernel, including ragged heights."""
+    chain, including ragged heights."""
     from paintfe_tpu.ops.fused_chain import fused_chain
     from paintfe_tpu.parallel.spatial import fused_chain_grid, grid_mesh
 
@@ -169,13 +165,13 @@ def test_fused_chain_spatial_zero_sigma():
     shard_map path must skip the halo exchange entirely instead of building
     a zero-height edge replica (round-4 review regression — jnp.repeat(.., 0)
     used to crash the broadcast inside jnp.where)."""
-    from paintfe_tpu.ops.fused_chain import fused_chain_kernel
-    from paintfe_tpu.parallel.spatial import fused_chain_grid, fused_chain_spatial, grid_mesh
+    from paintfe_tpu.ops.fused_chain import fused_chain
+    from paintfe_tpu.parallel.spatial import fused_chain_grid, grid_mesh
 
     rng = np.random.default_rng(23)
     img = rng.integers(0, 256, (64, 80, 4), np.uint8)
     ov = rng.integers(0, 256, (64, 80, 4), np.uint8)
-    ref = np.asarray(fused_chain_kernel(img, ov, sigma=0.0))
+    ref = np.asarray(fused_chain(img, ov, sigma=0.0))
     out = np.asarray(spatial.fused_chain_spatial(img, ov, _mesh8(), sigma=0.0))
     np.testing.assert_array_equal(ref, out)
 
@@ -186,7 +182,7 @@ def test_fused_chain_spatial_zero_sigma():
     mesh = grid_mesh(2, 4, jax.devices()[:8])
     imgs = rng.integers(0, 256, (2, 64, 80, 4), np.uint8)
     ovs = rng.integers(0, 256, (2, 64, 80, 4), np.uint8)
-    refs = np.stack([np.asarray(fused_chain_kernel(imgs[i], ovs[i], sigma=0.0))
+    refs = np.stack([np.asarray(fused_chain(imgs[i], ovs[i], sigma=0.0))
                      for i in range(2)])
     outs = np.asarray(fused_chain_grid(imgs, ovs, mesh, sigma=0.0))
     np.testing.assert_array_equal(refs, outs)
